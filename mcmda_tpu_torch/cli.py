@@ -1,13 +1,16 @@
-"""Command-line serving entry point: the ``predict`` subcommand of the JAX
-package's CLI (``mcmda_tpu/cli.py``), on PyTorch::
+"""Command-line entry points: the ``train-source`` and ``predict``
+subcommands of the JAX package's CLI (``mcmda_tpu/cli.py``), on PyTorch::
 
+    python -m mcmda_tpu_torch train-source --config configs/mri2ct.json \\
+        --synthetic --out runs/src --set segmenter.train_fused=pallas
     python -m mcmda_tpu_torch predict --config configs/mri2ct.json \\
         --ckpt runs/adapt --input vols/ --out preds/ --set run.use_pallas=true
 
-``--ckpt`` takes a run directory (resolved through ``selection.json``, else
-the latest step) or a step path; only npz checkpoints are read.  ``--device``
-(default ``cuda``) picks the device; a missing GPU is an error, never a
-quiet switch to the CPU.
+``train-source`` writes ``step_XXXXXXXX.npz`` checkpoints in the JAX
+package's key layout.  ``--ckpt`` takes a run directory (resolved through
+``selection.json``, else the latest step) or a step path; only npz
+checkpoints are read.  ``--device`` (default ``cuda``) picks the device; a
+missing GPU is an error, never a quiet switch to the CPU.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ def _selected_weights(ckpt_path: str) -> str | None:
 
 
 def _device(name: str) -> torch.device:
-    """The serving device.  On a GPU, f32 convs and matmuls are pinned to
+    """The device to run on.  On a GPU, f32 convs and matmuls are pinned to
     full f32: cuDNN would otherwise run f32 convs in TF32."""
     device = torch.device(name)
     if device.type == "cuda":
@@ -186,9 +189,106 @@ def cmd_predict(args, use_kernel: bool = True):
     return written
 
 
+def _get_data(args, cfg):
+    """Labeled source volumes (vols, labels) of ``--direction``: generated
+    phantoms with ``--synthetic``, else the MMWHS layout under
+    ``--data-root``."""
+    if args.synthetic:
+        from mcmda_tpu_torch.data import synthetic
+        size = cfg.data.slice_size
+        src_dom = "mri" if args.direction == "mri2ct" else "ct"
+        return synthetic.make_dataset(0, src_dom, args.synthetic_volumes,
+                                      max(16, size // 4), size)
+    from mcmda_tpu_torch.data import mmwhs
+    if not args.data_root:
+        raise SystemExit("train-source: pass --data-root or --synthetic")
+    return mmwhs.load_benchmark(args.data_root, args.direction)[0]
+
+
+def cmd_train_source(args):
+    """T1: supervised source-segmenter training.  The dataset lives on the
+    device and each step samples there when it is under 1 GiB; a host
+    sampler feeds the steps otherwise.  ``val_dice`` on the last source
+    volume is logged at every checkpoint."""
+    import itertools
+
+    from mcmda_tpu_torch.data import pipeline, volumes as vio
+    from mcmda_tpu_torch.evaluation import report
+    from mcmda_tpu_torch.train import loop, source
+    from mcmda_tpu_torch.utils import checkpoint, logging as mlog
+
+    cfg = config_mod.load_config(args.config, args.set)
+    device = _device(args.device)
+    if device.type == "cuda":
+        # deterministic cuDNN algorithms: a seeded run repeats bit for bit
+        torch.backends.cudnn.deterministic = True
+    src_vols, src_labs = _get_data(args, cfg)
+    ds = vio.volumes_to_slices(src_vols, src_labs,
+                               context=cfg.data.context_slices,
+                               drop_empty=True)
+    print(f"source training: {len(ds)} slices from {len(src_vols)} volumes",
+          flush=True)
+    state = source.init_state(cfg.run.seed, cfg, device)
+    if args.from_ckpt:  # an explicit resume point beats --out's latest
+        state = checkpoint.restore(_resolve_ckpt(args.from_ckpt), state)
+        start = int(state.step)
+    else:
+        state, start = loop.maybe_resume(args.out, state)
+    on_device = ds.images.nbytes < 1 << 30
+    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
+          flush=True)
+    if on_device:
+        step_fn = source.make_train_step(cfg, sample_from_device=True)
+        feed = itertools.repeat(pipeline.to_device_arrays(
+            ds, cfg.data.num_classes, device))
+    else:
+        step_fn = source.make_train_step(cfg)
+        feed = pipeline.to_device(iter(pipeline.BatchSampler(
+            ds, cfg.data.batch_size, seed=cfg.run.seed + 1,
+            num_classes=cfg.data.num_classes)), device)
+    logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
+                                tensorboard_dir=os.path.join(args.out, "tb"))
+    eval_fwd = source.make_eval_forward(cfg)
+    val_vol, val_lab = src_vols[-1], src_labs[-1]
+
+    def val_cb(step_i, st, _metrics=None):
+        agg = report.evaluate_volumes(
+            lambda img: eval_fwd(st.params, st.bn_state, img), [val_vol],
+            [val_lab], context=cfg.data.context_slices,
+            batch_size=cfg.data.batch_size, device=device)
+        logger.log(step_i, {"val_dice": agg["mean"]["dice"]})
+
+    loop.run(step_fn, state, feed, cfg.source.steps, seed=cfg.run.seed,
+             log_every=cfg.run.log_every, ckpt_every=cfg.run.ckpt_every,
+             ckpt_dir=args.out, logger=logger, start_step=start,
+             callback=val_cb)
+    logger.close()
+    print(f"done; final checkpoint in {args.out}", flush=True)
+    return 0
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="mcmda_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("train-source", help="supervised source training")
+    sp.add_argument("--config", default=None,
+                    help="ExperimentConfig JSON (default: built-in)")
+    sp.add_argument("--set", action="append", metavar="K.EY=VAL",
+                    help="config override, e.g. source.steps=100")
+    sp.add_argument("--direction", default="mri2ct",
+                    choices=["mri2ct", "ct2mri"])
+    sp.add_argument("--data-root", default=None,
+                    help="MMWHS root (see data/mmwhs.py layout)")
+    sp.add_argument("--synthetic", action="store_true",
+                    help="use the generated phantom dataset")
+    sp.add_argument("--synthetic-volumes", type=int, default=4)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--from-ckpt", default=None,
+                    help="explicit resume checkpoint (default: --out latest)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda)")
+    sp.set_defaults(fn=cmd_train_source)
+
     sp = sub.add_parser(
         "predict", help="serving: write segmentation masks for unlabeled "
                         "volumes (NIfTI/npz/npy)")

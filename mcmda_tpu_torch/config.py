@@ -3,8 +3,15 @@
 
 One difference: ``SegmenterConfig.compute_dtype`` is held as a dtype *name*
 ("float32" or "bfloat16"); ``torch_dtype`` maps it to a torch dtype at use.
-Fields that only the training path reads are kept so that every config file
-parses identically; the port does not act on them yet.
+Fields of paths not ported yet (adaptation, the critic, data parallelism)
+are kept so that every config file parses identically.
+
+The kernel switches keep the JAX package's strings.  On a CUDA tensor,
+``data.warp="pallas"`` selects the hand-written warp kernel and
+``segmenter.train_fused="pallas"`` the conv + BN-moments kernel;
+``"xla"`` and ``"none"`` select their plain PyTorch versions.  On a CPU
+tensor every path runs the plain versions.  ``run.use_pallas`` likewise
+selects the fused eval conv (``predict``).
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ class SegmenterConfig:
     # "nhwc"); all three compute the same math, so the port accepts the
     # field and ignores it
     thin_layout: str = "s2d2"
-    # training-mode fused conv + BN statistics in the JAX package
+    # "pallas": train-mode conv + BN moments of the wide tail through the
+    # fused kernel; "none": plain conv + BN
     train_fused: str = "none"
 
     @property
@@ -100,6 +108,7 @@ class DataConfig:
     rotate_degrees: float = 15.0
     zoom_range: Tuple[float, float] = (0.9, 1.1)
     shift_pixels: float = 10.0
+    # augmentation warp: "pallas" = the warp kernel, "xla" = plain
     warp: str = "xla"
 
 

@@ -9,7 +9,7 @@ the benchmark: 0=background, 1=AA, 2=LAC, 3=LVC, 4=MYO.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -58,3 +58,14 @@ def make_volume(rng: np.random.Generator, domain: str, depth: int = 24,
     img = img + bias + rng.normal(0, noise_scale, img.shape).astype(np.float32)
     img = (img - img.mean()) / (img.std() + 1e-8)
     return img, labels
+
+
+def make_dataset(seed: int, domain: str, num_volumes: int, depth: int = 24,
+                 size: int = 64) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    rng = np.random.default_rng(seed + (0 if domain == "mri" else 10_000))
+    vols, labs = [], []
+    for _ in range(num_volumes):
+        v, l = make_volume(rng, domain, depth, size)
+        vols.append(v)
+        labs.append(l)
+    return vols, labs

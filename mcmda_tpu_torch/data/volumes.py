@@ -1,8 +1,8 @@
 """Volume IO and normalization (host-side numpy).
 
-A copy of the serving subset of ``mcmda_tpu/data/volumes.py``: NIfTI-1/-2
-and npz/npy volumes in and out, per-volume normalization, and context
-stacking.  Copied rather than imported because importing any module of the
+A copy of ``mcmda_tpu/data/volumes.py``: NIfTI-1/-2 and npz/npy volumes
+in and out, per-volume normalization, context stacking and the slice
+dataset the training feeds draw from.  Copied rather than imported because importing any module of the
 JAX package imports ``jax``.  A minimal NIfTI reader and writer are
 implemented here (gzip-aware, scl_slope/scl_inter honoring), so no NIfTI
 library is needed.
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import gzip
 import struct
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -225,6 +226,11 @@ def save_volume(path: str, vol: np.ndarray, spacing=None) -> None:
         raise ValueError(f"unsupported volume extension: {path}")
 
 
+def load_volume(path: str, key: str | None = None) -> np.ndarray:
+    """Load a 3D volume from .npz/.npy/.nii/.nii.gz as float32 [S,H,W]."""
+    return load_volume_with_spacing(path, key)[0]
+
+
 def load_volume_with_spacing(path: str, key: str | None = None):
     """Load a 3D volume from .npz/.npy/.nii/.nii.gz as float32 [S,H,W],
     with its voxel spacing [3] (slice,row,col) when the format records it
@@ -259,7 +265,22 @@ def normalize_volume(vol: np.ndarray, clip_percentiles=(0.5, 99.5)) -> np.ndarra
     return (v - v.mean()) / (std + 1e-8)
 
 
-# --------------------------------------------------------- slice context
+# --------------------------------------------------------- slice extraction
+@dataclass
+class SliceDataset:
+    """All context-stacked slices of a split, materialized as flat arrays
+    ready for device feeds: images [N,H,W,ctx] f32, labels [N,H,W] int32
+    (labels may be None for the unlabeled target split)."""
+
+    images: np.ndarray
+    labels: np.ndarray | None
+    volume_ids: np.ndarray  # [N] which volume each slice came from
+    slice_ids: np.ndarray   # [N] index within its volume
+
+    def __len__(self):
+        return self.images.shape[0]
+
+
 def stack_context(vol: np.ndarray, context: int = 3) -> np.ndarray:
     """[S,H,W] -> [S,H,W,context]: each output slice is its `context`
     adjacent slices stacked as channels, edge-clamped (D1)."""
@@ -270,3 +291,33 @@ def stack_context(vol: np.ndarray, context: int = 3) -> np.ndarray:
     idx = np.arange(s)[:, None] + np.arange(-half, half + 1)[None, :]
     idx = np.clip(idx, 0, s - 1)
     return np.moveaxis(vol[idx], 1, -1)  # [S,H,W,context]
+
+
+def volumes_to_slices(vols, labels=None, context: int = 3,
+                      drop_empty: bool = False) -> SliceDataset:
+    """Build a SliceDataset from lists of [S,H,W] volumes (+ label volumes).
+
+    ``drop_empty`` discards slices whose label is all-background -- the usual
+    trick to keep foreground frequency up in cardiac training sets.
+    """
+    imgs, labs, vids, sids = [], [], [], []
+    for vi, vol in enumerate(vols):
+        stacked = stack_context(vol, context)
+        lab = labels[vi] if labels is not None else None
+        keep = np.arange(vol.shape[0])
+        if drop_empty and lab is not None:
+            keep = keep[(lab > 0).any(axis=(1, 2))]
+            if keep.size == 0:
+                keep = np.arange(vol.shape[0])
+        imgs.append(stacked[keep])
+        if lab is not None:
+            labs.append(lab[keep].astype(np.int32))
+        vids.append(np.full(len(keep), vi, np.int32))
+        sids.append(keep.astype(np.int32))
+    return SliceDataset(
+        images=np.concatenate(imgs, 0),
+        labels=np.concatenate(labs, 0) if labels is not None else None,
+        volume_ids=np.concatenate(vids, 0),
+        slice_ids=np.concatenate(sids, 0),
+    )
+

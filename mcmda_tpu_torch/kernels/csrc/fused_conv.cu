@@ -17,45 +17,22 @@
 // ceiling is the card's f32 (non-tensor-core) rate, not the bf16 tensor-core
 // rate.
 //
-// Design: an implicit GEMM.  Rows are output pixels (M = N*H*W), columns are
-// output channels (K), the reduction runs over 9 taps x C.  One block owns a
-// 64-pixel x 64-channel output tile and walks the reduction in steps of one
-// tap x 16 input channels: each step gathers the shifted input tile (zero
-// where the tap falls outside the image, so no padded copy of x is ever
-// written) and the matching weight slice into shared memory, then every
-// thread accumulates a 4x4 register tile from them.  The BN affine, residual
-// and activation are applied to the registers before the single store, so
-// the conv output never round-trips through device memory.  Unlike the TPU
-// kernel there is no VMEM-sized K tiling or fits-in-VMEM gate: the tile is
-// fixed and ragged edges (C=3 stem, K=16, M not a multiple of 64) are masked,
-// so every shape runs.  wgmma / TMA / bf16 tensor-core payloads are later
-// work.
+// Design: the implicit GEMM of conv_tile.cuh (64-pixel x 64-channel output
+// tile per block, one tap x 16 input channels per reduction step, SAME
+// padding as a bounds test).  The BN affine, residual and activation are
+// applied to the registers before the single store, so the conv output
+// never round-trips through device memory.  Unlike the TPU kernel there is
+// no VMEM-sized K tiling or fits-in-VMEM gate: the tile is fixed and ragged
+// edges (C=3 stem, K=16, M not a multiple of 64) are masked, so every shape
+// runs.  wgmma / TMA / bf16 tensor-core payloads are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;                                   // pixels per block
-constexpr int BN = 64;                                   // channels per block
-constexpr int BK = 16;                                   // reduction step
-constexpr int TM = 4;                                    // pixels per thread
-constexpr int TN = 4;                                    // channels per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);           // 256
-constexpr int A_ROWS = THREADS / BK;                     // 16 pixels per pass
-constexpr int A_PASSES = BM / A_ROWS;                    // 4
-constexpr int B_ROWS = THREADS / BN;                     // 4 channels per pass
-constexpr int B_PASSES = BK / B_ROWS;                    // 4
-constexpr int A_PAD = 4;  // keeps the transposed A stores off one bank
+using namespace conv_tile;
 
 enum Activation { kNone = 0, kRelu = 1, kLeakyRelu = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename TX, typename TR>
 __global__ void __launch_bounds__(THREADS)
@@ -67,89 +44,15 @@ conv_bn_act_kernel(const TX* __restrict__ x, const float* __restrict__ w,
   __shared__ __align__(16) float As[BK][BM + A_PAD];
   __shared__ __align__(16) float Bs[BK][BN];
 
-  const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int hw = h * wd;
-  const int m_total = n_img * hw;
-
-  // A loader: 16 consecutive threads read 16 consecutive channels of one
-  // pixel (NHWC keeps them contiguous), A_ROWS pixels per pass.
-  const int a_c = tid % BK;
-  const int a_r = tid / BK;
-  int pix_img[A_PASSES], pix_y[A_PASSES], pix_x[A_PASSES];
-#pragma unroll
-  for (int i = 0; i < A_PASSES; ++i) {
-    const int m = m0 + a_r + i * A_ROWS;
-    if (m < m_total) {
-      pix_img[i] = m / hw;
-      const int rem = m - pix_img[i] * hw;
-      pix_y[i] = rem / wd;
-      pix_x[i] = rem - pix_y[i] * wd;
-    } else {
-      pix_img[i] = -1;
-      pix_y[i] = 0;
-      pix_x[i] = 0;
-    }
-  }
-  // B loader: 64 consecutive threads read 64 consecutive output channels
-  // of one (tap, input channel) row of the HWIO weights.
-  const int b_n = tid % BN;
-  const int b_r = tid / BN;
-
-  // compute mapping: thread owns pixels tm..tm+3 and channels tn..tn+3
-  const int tm = (tid / (BN / TN)) * TM;
-  const int tn = (tid % (BN / TN)) * TN;
-
+  const int m_total = n_img * h * wd;
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = (tap / 3 - 1) * dil;
-    const int dx = (tap % 3 - 1) * dil;
-    for (int c0 = 0; c0 < c; c0 += BK) {
-      const int ca = c0 + a_c;
-#pragma unroll
-      for (int i = 0; i < A_PASSES; ++i) {
-        float v = 0.f;
-        const int iy = pix_y[i] + dy;
-        const int ix = pix_x[i] + dx;
-        if (pix_img[i] >= 0 && ca < c && iy >= 0 && iy < h && ix >= 0 &&
-            ix < wd) {
-          v = to_f32(x[((static_cast<size_t>(pix_img[i]) * h + iy) * wd + ix) *
-                           c + ca]);
-        }
-        As[a_c][a_r + i * A_ROWS] = v;
-      }
-      const int kb = n0 + b_n;
-#pragma unroll
-      for (int i = 0; i < B_PASSES; ++i) {
-        const int cb = c0 + b_r + i * B_ROWS;
-        Bs[b_r + i * B_ROWS][b_n] =
-            (cb < c && kb < k)
-                ? w[(static_cast<size_t>(tap) * c + cb) * k + kb]
-                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][tm]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tn]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
+  mainloop(x, w, n_img, h, wd, c, k, dil, m0, n0, As, Bs, acc);
 
   // epilogue: folded BN affine, residual, activation, one f32 store
+  const int tm = thread_row(threadIdx.x);
+  const int tn = thread_col(threadIdx.x);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + tm + i;

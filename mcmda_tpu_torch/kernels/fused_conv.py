@@ -17,10 +17,9 @@ TPU kernel's ``x.dtype`` output.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from mcmda_tpu_torch.kernels import build
 from mcmda_tpu_torch.ops import layers
 
 # Kernel launches made by ``conv_bn_act``; callers reset and read it to show
@@ -58,17 +57,6 @@ def conv_bn_act_reference(x, w, scale, bias, *, dilation: int = 1,
     return _activate(y, activation)
 
 
-def _check(name, t, shape, dtypes, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} dtype {t.dtype} not in {tuple(dtypes)}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def conv_bn_act(x, w, scale, bias, *, dilation: int = 1,
                 activation: str = "relu", residual=None):
     """x [N,H,W,C], w [3,3,C,K], scale/bias [K], residual [N,H,W,K] or
@@ -87,32 +75,23 @@ def conv_bn_act(x, w, scale, bias, *, dilation: int = 1,
         raise ValueError(f"dilation must be >= 1, got {dilation}")
     n, h, wd, c = x.shape
     k = w.shape[-1]
-    _check("x", x, (n, h, wd, c), _X_DTYPES, x.device)
-    _check("w", w, (3, 3, c, k), (torch.float32,), x.device)
-    _check("scale", scale, (k,), (torch.float32,), x.device)
-    _check("bias", bias, (k,), (torch.float32,), x.device)
+    f32 = (torch.float32,)
+    build.check("x", x, (n, h, wd, c), _X_DTYPES, x.device)
+    build.check("w", w, (3, 3, c, k), f32, x.device)
+    build.check("scale", scale, (k,), f32, x.device)
+    build.check("bias", bias, (k,), f32, x.device)
     if residual is not None:
-        _check("residual", residual, (n, h, wd, k), _X_DTYPES, x.device)
+        build.check("residual", residual, (n, h, wd, k), _X_DTYPES, x.device)
     if n * h * wd >= 2 ** 31:
         raise ValueError("conv_bn_act: N*H*W must fit a 32-bit int")
 
-    from mcmda_tpu_torch.kernels import build
-
-    lib = build.load()
     out = torch.empty((n, h, wd, k), dtype=torch.float32, device=x.device)
-    # the launch goes to the current device, which must be x's
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mcmda_conv_bn_act(
-            x.data_ptr(), _X_DTYPES[x.dtype], w.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            _X_DTYPES[residual.dtype] if residual is not None else 0,
-            out.data_ptr(), n, h, wd, c, k, dilation,
-            _ACTIVATIONS[activation], ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"conv_bn_act kernel launch failed: CUDA error "
-                           f"{err}")
+    build.launch(
+        "mcmda_conv_bn_act", x.device, x.data_ptr(), _X_DTYPES[x.dtype],
+        w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None,
+        _X_DTYPES[residual.dtype] if residual is not None else 0,
+        out.data_ptr(), n, h, wd, c, k, dilation, _ACTIVATIONS[activation])
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -1,4 +1,4 @@
-"""Dilated-residual segmenter with the plug-and-play DAM split, eval mode.
+"""Dilated-residual segmenter with the plug-and-play DAM split.
 
 Counterpart of ``mcmda_tpu/models/segmenter.py``: stem conv -> strided
 residual stages (x8 downsampling) -> dilated residual stages at 1/8
@@ -56,24 +56,42 @@ def _stage_params(params, dam_params, plug_depth, cfg: SegmenterConfig):
             in_dam = False  # hand off to the frozen higher layers
 
 
-def apply(params, state, x, cfg: SegmenterConfig, *, dam_params=None,
-          plug_depth: str | None = None):
-    """Eval-mode forward (``segmenter.apply(..., train=False)``).
+def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
+          dam_params=None, plug_depth: str | None = None):
+    """Forward pass (the JAX ``segmenter.apply``).
 
-    x [N,H,W,C] -> (logits [N,H,W,classes] f32, probs = softmax(logits))."""
+    ``train=True`` normalizes by batch statistics and returns updated BN
+    state; under ``cfg.train_fused == "pallas"`` the wide tail's convs take
+    the fused conv + BN-moments path (``ops/blocks.py``).  Eval mode uses
+    the running statistics and returns ``state`` unchanged.
+
+    x [N,H,W,C] -> (logits [N,H,W,classes] f32, probs = softmax(logits),
+    taps {stage name: activation}, new_state)."""
     dtype = torch_dtype(cfg.compute_dtype)
+    fused_train = cfg.train_fused == "pallas"
+    taps: Dict[str, torch.Tensor] = {}
+    new_state: Dict = {}
     h = x.to(dtype)
     for spec, p in _stage_params(params, dam_params, plug_depth, cfg):
         st = state[spec.name]
         if spec.name == "stem":
             h = layers.conv_apply(p["conv"], h, compute_dtype=dtype)
-            h = layers.relu(layers.bn_apply(p["bn"], st["bn"], h, cfg.bn_eps))
+            if train:
+                h, bn_s = layers.bn_apply_train(p["bn"], st["bn"], h,
+                                                cfg.bn_momentum, cfg.bn_eps)
+            else:
+                h, bn_s = layers.bn_apply(p["bn"], st["bn"], h,
+                                          cfg.bn_eps), st["bn"]
+            h = layers.relu(h)
+            new_state[spec.name] = {"bn": bn_s}
         else:
-            h = blocks.stage_apply(p, st, h, spec, eps=cfg.bn_eps,
-                                   compute_dtype=dtype)
+            h, new_state[spec.name] = blocks.stage_apply(
+                p, st, h, spec, train=train, momentum=cfg.bn_momentum,
+                eps=cfg.bn_eps, compute_dtype=dtype, fused_train=fused_train)
+        taps[spec.name] = h
     logits = layers.conv_apply(params["head"], h, compute_dtype=dtype)
     logits = layers.bilinear_upsample(logits, cfg.total_stride).float()
-    return logits, torch.softmax(logits, dim=-1)
+    return logits, torch.softmax(logits, dim=-1), taps, new_state
 
 
 def apply_fused_eval(params, state, x, cfg: SegmenterConfig, *,
@@ -105,7 +123,7 @@ def apply_fused_eval(params, state, x, cfg: SegmenterConfig, *,
         for i in range(spec.blocks):
             bp, bs = p[f"b{i}"], st[f"b{i}"]
             if i == 0 and spec.stride != 1:
-                h = blocks.residual_block_apply(
+                h, _ = blocks.residual_block_apply(
                     bp, bs, h, stride=spec.stride, dilation=spec.dilation,
                     eps=cfg.bn_eps, compute_dtype=dtype)
                 continue

@@ -1,1 +1,1 @@
-"""Layers and residual blocks of the eval-mode forward."""
+"""Layers, residual blocks and losses of the segmenter."""

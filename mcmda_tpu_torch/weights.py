@@ -1,4 +1,4 @@
-"""Bridge from the JAX package's checkpoints to the port's param trees.
+"""Bridge between the JAX package's checkpoints and the port's trees.
 
 The JAX package writes ``step_XXXXXXXX.npz`` checkpoints as a flat
 ``{keystr: array}`` dict (``mcmda_tpu/utils/checkpoint.py``, ``_flatten``),
@@ -8,19 +8,29 @@ and ``.src_params``, ``.src_bn``, ``.dam_params``, ``.tgt_bn`` and optionally
 turns such a file into the port's nested dicts of tensors on a device,
 checking every tree against the shapes the config implies.
 
+``flatten_state`` / ``unflatten_state`` carry a whole training state across
+in both directions: the port's ``SourceState`` (a dataclass whose optimizer
+state keeps optax's tuple-of-NamedTuples structure) flattens to exactly the
+keys ``jax.tree_util.keystr`` gives the JAX state, e.g.
+``.opt_state[0].mu['rm1']['b0']['conv1']['w']``, so each package restores
+the other's npz checkpoints.
+
 Orbax checkpoint directories cannot be read without ``jax`` and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
+import warnings
 
 import numpy as np
 import torch
 
 from mcmda_tpu_torch.config import ExperimentConfig
 from mcmda_tpu_torch.models import segmenter
+from mcmda_tpu_torch.utils.tree import tree_map
 
 _NAME = re.compile(r"\['([^'\]]*)'\]")
 
@@ -59,21 +69,74 @@ def subtree(flat: dict, field: str) -> dict | None:
     return tree if found else None
 
 
+def _walk(node, key: str, out: dict) -> None:
+    """Leaves of ``node`` under ``jax.tree_util.keystr`` names: dataclass
+    fields and NamedTuple fields as ``.name``, tuple items as ``[i]``, dict
+    items as ``['k']``; None holds no leaf."""
+    if node is None:
+        return
+    if dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            _walk(getattr(node, f.name), f"{key}.{f.name}", out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for name in node._fields:
+            _walk(getattr(node, name), f"{key}.{name}", out)
+    elif isinstance(node, (tuple, list)):
+        for i, child in enumerate(node):
+            _walk(child, f"{key}[{i}]", out)
+    elif isinstance(node, dict):
+        for name, child in node.items():
+            _walk(child, f"{key}['{name}']", out)
+    else:
+        out[key] = (node.detach().cpu().numpy()
+                    if isinstance(node, torch.Tensor) else np.asarray(node))
+
+
 def flatten(tree: dict, field: str) -> dict:
     """Inverse of ``subtree``: ``{".<field>['a']['b']": array}``."""
-    out = {}
-
-    def walk(node, key):
-        if isinstance(node, dict):
-            for name, child in node.items():
-                walk(child, f"{key}['{name}']")
-        else:
-            out[key] = (node.detach().cpu().numpy()
-                        if isinstance(node, torch.Tensor)
-                        else np.asarray(node))
-
-    walk(tree, "." + field)
+    out: dict = {}
+    _walk(tree, "." + field, out)
     return out
+
+
+def flatten_state(state) -> dict:
+    """A training state as the JAX package's flat npz dict
+    (``mcmda_tpu/utils/checkpoint.py``, ``_flatten``)."""
+    out: dict = {}
+    _walk(state, "", out)
+    return out
+
+
+def unflatten_state(flat: dict, like, where: str = ""):
+    """A state of ``like``'s structure with its leaves from the flat
+    checkpoint dict ``flat``, each on its ``like`` leaf's device and dtype
+    and checked against its shape.  A key the checkpoint lacks keeps the
+    ``like`` value, with a warning, as the JAX package's restore does."""
+    if like is None:
+        return None
+    if dataclasses.is_dataclass(like):
+        return dataclasses.replace(like, **{
+            f.name: unflatten_state(flat, getattr(like, f.name),
+                                    f"{where}.{f.name}")
+            for f in dataclasses.fields(like)})
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(unflatten_state(flat, getattr(like, n),
+                                            f"{where}.{n}")
+                            for n in like._fields))
+    if isinstance(like, (tuple, list)):
+        return type(like)(unflatten_state(flat, c, f"{where}[{i}]")
+                          for i, c in enumerate(like))
+    if isinstance(like, dict):
+        return {k: unflatten_state(flat, v, f"{where}['{k}']")
+                for k, v in like.items()}
+    if where not in flat:
+        warnings.warn(f"checkpoint lacks {where}; keeping the init value")
+        return like
+    arr = np.asarray(flat[where])
+    if arr.shape != tuple(like.shape):
+        raise ValueError(f"checkpoint {where}: shape {arr.shape} != "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
 
 
 def _to_device(tree, like, where: str, device):
@@ -127,12 +190,6 @@ def restore_adapt(path: str, cfg: ExperimentConfig, device) -> dict:
     return out
 
 
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def eval_weights(state: dict, use_avg: bool = False):
     """(dam_params, bn) to serve with: the live DAM and target BN, or the
     bias-corrected weight average ``avg / ema_w``.  Falls back to the live
@@ -147,5 +204,5 @@ def eval_weights(state: dict, use_avg: bool = False):
     def debias(avg, live):
         return avg * inv + (1 - nz) * live
 
-    return (_tree_map(debias, state["avg_dam"], state["dam_params"]),
-            _tree_map(debias, state["avg_bn"], state["tgt_bn"]))
+    return (tree_map(debias, state["avg_dam"], state["dam_params"]),
+            tree_map(debias, state["avg_bn"], state["tgt_bn"]))

@@ -110,7 +110,8 @@ def _run(m, fn, dam, bf16):
     if fn == "apply":
         lj, pj, _, _ = jseg.apply(m["jp"], m["jb"], xj, cfg.segmenter,
                                   train=False, **dj)
-        lt, pt = tseg.apply(m["tp"], m["tb"], xt, t_cfg.segmenter, **dt)
+        lt, pt, _, _ = tseg.apply(m["tp"], m["tb"], xt, t_cfg.segmenter,
+                                  **dt)
     else:
         lj, pj = jseg.apply_fused_eval(m["jp"], m["jb"], xj, cfg.segmenter,
                                        use_pallas=False, **dj)
