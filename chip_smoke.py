@@ -38,10 +38,31 @@ Phases (any failure ends the run non-zero):
    the step-1 loss of the kernel path against the plain path, bitwise
    repeatable losses, and that the final checkpoint serves through
    ``predict``; times ``make_train_step`` on both paths.
+7. thin stem: ``thin_conv.stem_apply_cf`` in train mode at [8,256,256,3]
+   -> 16 through the stem kernel (forward, dw, BN, ReLU) against the plain
+   conv under autograd: y, dw, dx (None by default, and with input_grad);
+   times the kernel, the plain version and cuDNN's conv.
+8. adapt: ``python -m mcmda_tpu_torch adapt --synthetic`` at full width
+   from phase 6's kernel run (see ADAPT_RUNS): the kernel path for 30 steps
+   with checkpoints, snapshots and class-ratio selection; two 5-step
+   kernel runs (bitwise equal losses); the shipped config; the plain path;
+   one step each of the kernel and the plain path with f32 source features
+   (step-1 losses of each kernel/plain pair, see ADAPT_BF16_STEP1_RTOL).
+   Checks the launches per step, finite losses, selection.json, the
+   materialized selected checkpoint and the snapshot PNGs; times
+   ``make_adapt_step`` on both paths.
+9. evaluate: ``python -m mcmda_tpu_torch evaluate`` of phase 8's kernel run
+   on the fused path (run.use_pallas): it resolves selection.json, the
+   fused conv runs once per call site per forward batch, and the Dice /
+   ASSD table is finite; ``predict`` serves the same selected checkpoint.
 
-The line before the last is a JSON object of kernel results; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result.
+Every kernel is timed beside its bound (the larger of the bytes it must
+move at 3.35 TB/s and its operations at the f32 CUDA-core rate of 67
+TFLOP/s: TF32 is off) and a PyTorch call computing the same or the core of
+the same function (``library_ms``).  The line before the last is a JSON
+object of kernel results; the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -86,6 +107,9 @@ RUNS = (
 )
 EXACT_SLACK = 0.001
 TIMED_RUNS = 20
+# about 2.5 ms of the card's clock: longer than the host takes to enqueue
+# one timed call
+SPIN_CYCLES = 5_000_000
 # phase 5: the warp computes its coordinates bitwise like the plain version,
 # so only the f32 blend's rounding differs
 WARP_ATOL = 1e-5
@@ -111,6 +135,35 @@ TRAIN_RUNS = (
     ("plain", ["data.warp=xla", "segmenter.train_fused=none"], 5, 0, 0),
 )
 STEP1_RTOL = 1e-3
+# phase 8: (name, extra adapt --set overrides, steps, warp launches per
+# step, conv-moments launches per step).  The shipped config runs the
+# frozen source forward in bf16 (adapt.src_feats_bf16), which takes no conv
+# + moments call; the one shared target forward per step takes 15, and an
+# f32 source forward 15 more.
+ADAPT_STEPS = 30
+F32_SRC = "adapt.src_feats_bf16=false"
+ADAPT_RUNS = (
+    ("kernel", ["segmenter.train_fused=pallas", "run.ckpt_every=10"],
+     ADAPT_STEPS, 1, 15),
+    ("kernel-5a", ["segmenter.train_fused=pallas"], 5, 1, 15),
+    ("kernel-5b", ["segmenter.train_fused=pallas"], 5, 1, 15),
+    ("shipped", [], 5, 1, 0),
+    ("plain", ["data.warp=xla", "segmenter.train_fused=none"], 5, 0, 0),
+    ("kernel-f32", ["segmenter.train_fused=pallas", F32_SRC], 1, 1, 30),
+    ("plain-f32", ["data.warp=xla", "segmenter.train_fused=none", F32_SRC],
+     1, 0, 0),
+)
+# step-1 losses of the kernel path against the plain path: with f32 source
+# features within STEP1_RTOL; in the shipped bf16 source forward the warp
+# kernel's last-bit blend differences (<= 1e-5, phase 5) flip bf16
+# roundings that the network carries to the critic's input, so the bf16
+# pair is held to ADAPT_BF16_STEP1_RTOL (1.7e-3 on d_loss measured on an
+# H100).  The shipped run (warp kernel, plain convs) against the kernel run
+# isolates the conv + moments kernel and is held to STEP1_RTOL.
+ADAPT_BF16_STEP1_RTOL = 1e-2
+# H100 SXM peaks (NVIDIA's data sheet): device memory and f32 CUDA cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -151,7 +204,10 @@ def call_sites(cfg, n: int, size: int):
 
 def gpu_time_ms(fn, torch) -> float:
     """Median of TIMED_RUNS runs after warmup, each timed with CUDA events
-    between two synchronizations."""
+    between two synchronizations.  A spin kernel queued ahead of the first
+    event keeps the card busy while the host enqueues ``fn``, so the events
+    time the device work, not the host's launch overhead (which is most of
+    a call of a few tens of microseconds)."""
     for _ in range(3):
         fn()
     times = []
@@ -159,12 +215,40 @@ def gpu_time_ms(fn, torch) -> float:
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms for the work, what bounds it): the bytes at the card's
+    memory rate against the operations at its f32 rate."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def conv_work(xs, k, x_bytes, out_bytes, extra_bytes=0):
+    """(bytes, flops) of a 3x3 conv of NHWC x of shape ``xs`` to k
+    channels: x, the f32 weights and the output once each, plus
+    ``extra_bytes``; 2 operations per multiply-add."""
+    n, h, w, c = xs
+    px = n * h * w
+    return (px * c * x_bytes + 9 * c * k * 4 + px * k * out_bytes
+            + extra_bytes, 2.0 * px * 9 * c * k)
+
+
+def library_conv(torch, x, w, dilation):
+    """cuDNN's conv of NHWC x (a channels-last view) with HWIO w in x's
+    dtype: the library call beside a conv kernel."""
+    import torch.nn.functional as F
+
+    wl = w.to(x.dtype).permute(3, 2, 0, 1).contiguous()
+    xl = x.permute(0, 3, 1, 2)
+    return lambda: F.conv2d(xl, wl, padding=dilation, dilation=dilation)
 
 
 def phase_kernel(cfg, torch, fk):
@@ -206,11 +290,12 @@ def phase_kernel(cfg, torch, fk):
                           torch)
         t_p = gpu_time_ms(
             lambda: fk.conv_bn_act_reference(x, w, scale, bias, **kw), torch)
-        cases[(xs, k, d, r_dt, x_dt, act)] = (t_k, t_p)
+        t_l = gpu_time_ms(library_conv(torch, x, w, d), torch)
+        cases[(xs, k, d, r_dt, x_dt, act)] = (t_k, t_p, t_l)
         print(f"kernel x={list(xs)} {x_dt} k={k} d={d} residual={r_dt} "
               f"{act}: "
               f"max_abs_err={err:.3e} kernel_ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f}", flush=True)
+              f"plain_ms={t_p:.4f} library_ms={t_l:.4f}", flush=True)
         if not ok:
             fail(f"kernel disagrees with plain at x={xs} {x_dt} k={k} "
                  f"d={d} residual={r_dt} {act}: max abs err {err}")
@@ -219,13 +304,23 @@ def phase_kernel(cfg, torch, fk):
     for n, sites in per_batch.items():
         totals[n] = [sum(cases[(xs, k, d, r_dt, x_dt, "relu")][i]
                          for _, xs, k, d, x_dt, r_dt in sites)
-                     for i in (0, 1)]
+                     for i in (0, 1, 2)]
         print(f"kernel: {len(sites)} call sites per forward batch of {n}: "
-              f"kernel {totals[n][0]:.3f} ms, plain {totals[n][1]:.3f} ms",
-              flush=True)
+              f"kernel {totals[n][0]:.3f} ms, plain {totals[n][1]:.3f} ms, "
+              f"library conv {totals[n][2]:.3f} ms", flush=True)
+    size = {"float32": 4, "bfloat16": 2}
+    work = [conv_work(xs, k, size[x_dt], 4,
+                      2 * k * 4 + (xs[0] * xs[1] * xs[2] * k * size[r_dt]
+                                   if r_dt else 0))
+            for _, xs, k, d, x_dt, r_dt in per_batch[BATCH]]
+    b_ms, b_by = bound(sum(b for b, _ in work), sum(f for _, f in work))
     print(f"kernel: {len(cases)} cases agree (rtol={RTOL}, atol={ATOL}), "
-          f"max abs err {worst:.3e}", flush=True)
-    return worst, totals[BATCH][0], totals[BATCH][1], len(per_batch[BATCH])
+          f"max abs err {worst:.3e}; bound per forward batch of {BATCH} "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return (len(per_batch[BATCH]),
+            dict(max_abs_err=worst, ms=totals[BATCH][0],
+                 plain_ms=totals[BATCH][1], bound_ms=b_ms, bound_by=b_by,
+                 library_ms=totals[BATCH][2]))
 
 
 def _random_trees(cfg, rng, segmenter):
@@ -475,45 +570,63 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
     plain versions; returns the kernels' JSON fields (without launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # warp: draws over the config's ranges, alternating flips, the last
-    # image the identity transform
-    draws = pipeline.draw_params(gen, cfg.data, BATCH, "cuda")
-    draws[:, 0] = (torch.arange(BATCH, device="cuda") % 2).float()
-    draws[-1] = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0])
-    coefs = wk.affine_coefs(*draws[:, 1:].unbind(-1), draws[:, 0], SIZE,
-                            SIZE)
+    # image of each batch the identity transform.  Train-source warps a
+    # batch of 8 with its labels; adapt warps the 16 images of the source
+    # and target batches together.
+    draws = pipeline.draw_params(gen, cfg.data, 2 * BATCH, "cuda")
+    draws[:, 0] = (torch.arange(2 * BATCH, device="cuda") % 2).float()
+    draws[BATCH - 1] = draws[-1] = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0])
+    coefs2 = wk.affine_coefs(*draws[:, 1:].unbind(-1), draws[:, 0], SIZE,
+                             SIZE)
+    coefs = coefs2[:BATCH].contiguous()
     k = cfg.data.num_classes
     image = torch.randn((BATCH, SIZE, SIZE, 3), device="cuda", generator=gen)
     label = torch.nn.functional.one_hot(
         torch.randint(0, k, (BATCH, SIZE, SIZE), device="cuda",
                       generator=gen), k).float()
+    image2 = torch.randn((2 * BATCH, SIZE, SIZE, 3), device="cuda",
+                         generator=gen)
     warp = {}
-    for name, packed in (("image+label", torch.cat([image, label], -1)),
-                         ("image", image.contiguous())):
-        got = wk.warp_affine(packed, coefs, n_image=3)
+    for name, packed, cf in (
+            ("image+label", torch.cat([image, label], -1), coefs),
+            ("image", image.contiguous(), coefs),
+            ("adapt image", image2, coefs2)):
+        got = wk.warp_affine(packed, cf, n_image=3)
         torch.cuda.synchronize()
-        ref = wk.warp_affine_reference(packed, coefs, n_image=3)
+        ref = wk.warp_affine_reference(packed, cf, n_image=3)
         err = (got - ref).abs().max().item()
         if not torch.isfinite(got).all() or got.shape != ref.shape:
             fail(f"warp {name}: output not finite or shape {got.shape}")
-        t_k = gpu_time_ms(lambda: wk.warp_affine(packed, coefs, n_image=3),
+        t_k = gpu_time_ms(lambda: wk.warp_affine(packed, cf, n_image=3),
                           torch)
         t_p = gpu_time_ms(
-            lambda: wk.warp_affine_reference(packed, coefs, n_image=3), torch)
-        warp[name] = (err, t_k, t_p)
+            lambda: wk.warp_affine_reference(packed, cf, n_image=3), torch)
+        t_l = gpu_time_ms(library_warp(torch, wk, packed, cf), torch)
+        c = packed.shape[-1]
+        px = packed.shape[0] * SIZE * SIZE
+        # coordinates 8 ops and corner weights 7 per pixel, the blend 7
+        # per channel, the label renormalisation 2 per label channel
+        b_ms, b_by = bound(2 * px * c * 4 + cf.numel() * 4,
+                           px * (15 + 7 * c + 2 * (c - 3)))
+        warp[name] = (err, t_k, t_p, t_l, b_ms, b_by)
         print(f"warp {name} x={list(packed.shape)}: max_abs_err={err:.3e} "
-              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f}", flush=True)
+              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} grid_sample_ms="
+              f"{t_l:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if err > WARP_ATOL:
             fail(f"warp {name}: max abs err {err} > {WARP_ATOL}")
     # identity image: the input itself (labels renormalised one-hots)
     same = wk.warp_affine(torch.cat([image, label], -1), coefs, n_image=3)
-    if not torch.equal(same[-1], torch.cat([image, label], -1)[-1]):
+    same2 = wk.warp_affine(image2, coefs2, n_image=3)
+    if not (torch.equal(same[-1], torch.cat([image, label], -1)[-1])
+            and torch.equal(same2[-1], image2[-1])):
         fail("warp: the identity transform does not return its input")
 
     sites = train_call_sites(cfg.segmenter, BATCH, SIZE)
     shapes = {}
     for xs, kk, d in sites:
         shapes[(xs, kk, d)] = shapes.get((xs, kk, d), 0) + 1
-    worst, t_k_step, t_p_step = 0.0, 0.0, 0.0
+    worst, t_k_step, t_p_step, t_l_step = 0.0, 0.0, 0.0, 0.0
+    nbytes = flops = 0.0
     for (xs, kk, d), count in shapes.items():
         c = xs[-1]
         x = torch.randn(xs, device="cuda", generator=gen)
@@ -528,12 +641,17 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         m2 = ((s2 - r2).abs() / torch.square(rz).sum((0, 1, 2))).max().item()
         t_k = gpu_time_ms(lambda: tk.conv_stats_forward(x, w, d), torch)
         t_p = gpu_time_ms(lambda: tk.conv_stats_reference(x, w, d), torch)
+        t_l = gpu_time_ms(library_conv(torch, x, w, d), torch)
         t_k_step += count * t_k
         t_p_step += count * t_p
+        t_l_step += count * t_l
+        b, f = conv_work(xs, kk, 4, 4, 2 * kk * 4)
+        nbytes += count * b
+        flops += count * f
         print(f"conv_stats x={list(xs)} k={kk} d={d} ({count} per step): "
               f"z max_abs_err={err:.3e}, sum rel {m1:.2e}, sumsq rel "
-              f"{m2:.2e}; kernel_ms={t_k:.4f} plain_ms={t_p:.4f}",
-              flush=True)
+              f"{m2:.2e}; kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+              f"library_ms={t_l:.4f}", flush=True)
         if not torch.allclose(z, rz, rtol=RTOL, atol=ATOL):
             fail(f"conv_stats z disagrees at x={xs} k={kk} d={d}: {err}")
         if max(m1, m2) > MOMENT_RTOL:
@@ -542,8 +660,10 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
     if len(sites) != TRAIN_RUNS[0][4]:
         fail(f"{len(sites)} conv + moments sites per step, expected "
              f"{TRAIN_RUNS[0][4]}")
+    c_ms, c_by = bound(nbytes, flops)
     print(f"conv_stats: {len(sites)} calls per train step: kernel "
-          f"{t_k_step:.3f} ms, plain {t_p_step:.3f} ms (forward)",
+          f"{t_k_step:.3f} ms, plain {t_p_step:.3f} ms, library conv "
+          f"{t_l_step:.3f} ms, bound {c_ms:.4f} ms ({c_by}) (forward)",
           flush=True)
     # gradients of a scalar of (z, sum, sumsq) at 512 -> 512 d4
     xs, kk, d = (BATCH, SIZE // 8, SIZE // 8, 512), 512, 4
@@ -566,12 +686,31 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
     if max(rel) > GRAD_RTOL:
         fail(f"conv_stats gradients disagree: {rel}")
     w_err = max(v[0] for v in warp.values())
+    _, t_k, t_p, t_l, b_ms, b_by = warp["image+label"]
     return {
-        "warp_affine": dict(max_abs_err=w_err, ms=warp["image+label"][1],
-                            plain_ms=warp["image+label"][2]),
+        "warp_affine": dict(max_abs_err=w_err, ms=t_k, plain_ms=t_p,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=t_l),
         "conv_stats": dict(max_abs_err=worst, ms=t_k_step,
-                           plain_ms=t_p_step),
+                           plain_ms=t_p_step, bound_ms=c_ms, bound_by=c_by,
+                           library_ms=t_l_step),
     }
+
+
+def library_warp(torch, wk, packed, coefs):
+    """``F.grid_sample`` (bilinear, zeros outside) of the packed batch at
+    the warp's sampling coordinates, normalised for align_corners=True:
+    the library call beside the warp.  It leaves out the label
+    renormalisation, and the flip is already folded into the coordinates;
+    at the border it zeroes the missing corners where the warp clamps
+    them."""
+    import torch.nn.functional as F
+
+    ys, xs = wk.sample_coords(coefs, SIZE, SIZE)
+    grid = torch.stack([xs / (SIZE - 1) * 2 - 1, ys / (SIZE - 1) * 2 - 1],
+                       -1)
+    xl = packed.permute(0, 3, 1, 2)
+    return lambda: F.grid_sample(xl, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
 
 
 def _losses(out_dir):
@@ -582,11 +721,12 @@ def _losses(out_dir):
             [r["val_dice"] for r in recs if "val_dice" in r])
 
 
-def phase_train(torch, wk, tk, fk):
-    """Phase 6: full-width train-source through the CLI (TRAIN_RUNS), the
-    final checkpoint served by predict, and make_train_step timed on the
-    kernel and the plain path; returns ([warp launches, conv-moments
-    launches] of the runs, {path: ms/step})."""
+def phase_train(torch, wk, tk, fk, tmp):
+    """Phase 6: full-width train-source through the CLI (TRAIN_RUNS) into
+    run directories under ``tmp``, the final checkpoint served by predict,
+    and make_train_step timed on the kernel and the plain path; returns
+    ([warp launches, conv-moments launches] of the runs, {path:
+    ms/step})."""
     from mcmda_tpu_torch import cli, weights
     from mcmda_tpu_torch import config as config_mod
     from mcmda_tpu_torch.data import synthetic, volumes
@@ -594,82 +734,122 @@ def phase_train(torch, wk, tk, fk):
 
     launches = [0, 0]
     runs = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, sets, steps, n_warp, n_conv in TRAIN_RUNS:
-            out = os.path.join(tmp, name)
-            argv = ["train-source", "--config", CONFIG, "--synthetic",
-                    "--out", out, "--device", DEVICE]
-            for kv in [f"source.steps={steps}", "run.log_every=1", *sets]:
-                argv += ["--set", kv]
-            torch.cuda.synchronize()
-            wk.LAUNCHES = tk.LAUNCHES = 0
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            got = (wk.LAUNCHES, tk.LAUNCHES)
-            launches[0] += got[0]
-            launches[1] += got[1]
-            if rc != 0:
-                fail(f"train-source {name} returned {rc}")
-            losses, dice = _losses(out)
-            runs[name] = losses
-            print(f"train-source {name}: {steps} steps, cli wall {wall:.1f} "
-                  f"s; launches warp {got[0]}, conv_stats {got[1]}; loss "
-                  f"first {losses[0]:.6f} last {losses[-1]:.6f}; val_dice "
-                  f"{[round(d, 4) for d in dice]}; checkpoints "
-                  f"{sorted(os.listdir(out))}", flush=True)
-            if got != (n_warp * steps, n_conv * steps):
-                fail(f"train-source {name}: launches {got}, expected "
-                     f"{(n_warp * steps, n_conv * steps)}")
-            if len(losses) != steps or not np.isfinite(losses).all():
-                fail(f"train-source {name}: losses {losses}")
-        full = runs["kernel"]
-        first, last = np.mean(full[:10]), np.mean(full[-10:])
-        rel = abs(full[0] - runs["plain"][0]) / abs(runs["plain"][0])
-        print(f"train-source: kernel path mean loss first 10 {first:.6f}, "
-              f"last 10 {last:.6f}; step-1 loss kernel {full[0]!r} plain "
-              f"{runs['plain'][0]!r} (rel {rel:.2e}); two 5-step kernel "
-              f"runs {'equal' if runs['kernel-5a'] == runs['kernel-5b'] else 'DIFFER'}",
-              flush=True)
-        if not last < first:
-            fail(f"kernel path loss did not fall: {first} -> {last}")
-        if rel > STEP1_RTOL:
-            fail(f"step-1 loss kernel/plain rel diff {rel} > {STEP1_RTOL}")
-        if runs["kernel-5a"] != runs["kernel-5b"]:
-            fail(f"seeded kernel runs differ: {runs['kernel-5a']} vs "
-                 f"{runs['kernel-5b']}")
-        if _losses(os.path.join(tmp, "kernel"))[1] == []:
-            fail("val_dice never logged")
-        # the trained checkpoint, served
-        cfg = config_mod.load_config(CONFIG)
-        ckpt = os.path.join(tmp, "kernel", f"step_{TRAIN_STEPS:08d}")
-        params, bn = weights.restore_source(ckpt, cfg, DEVICE)
-        rng = np.random.default_rng(SEED)
-        vol, _ = synthetic.make_volume(rng, "mri", depth=16, size=SIZE)
-        vol_path = os.path.join(tmp, "in", "case1.npz")
-        os.makedirs(os.path.dirname(vol_path))
-        volumes.save_volume(vol_path, vol)
-        pred_dir = os.path.join(tmp, "pred")
-        fk.LAUNCHES = 0
-        rc = cli.main(["predict", "--config", CONFIG, "--ckpt",
-                       os.path.join(tmp, "kernel"), "--input", vol_path,
-                       "--out", pred_dir, "--source-only", "--device",
-                       DEVICE, *(a for kv in SETS for a in ("--set", kv))])
-        mask = volumes.load_volume_with_spacing(
-            os.path.join(pred_dir, "case1_pred.npz"))[0]
-        counts = np.bincount(mask.astype(np.int64).ravel(), minlength=5)
-        print(f"predict from the trained checkpoint: mask {list(mask.shape)}"
-              f" classes {counts.tolist()}, fused conv launches "
-              f"{fk.LAUNCHES}", flush=True)
-        if rc != 0 or mask.shape != (16, SIZE, SIZE) or \
-                not set(np.unique(mask).tolist()) <= set(range(5)):
-            fail(f"predict from the trained checkpoint: rc {rc}, mask "
-                 f"{mask.shape} {np.unique(mask)}")
-        if not all(torch.isfinite(t).all() for t in
-                   tree.leaves(params) + tree.leaves(bn)):
-            fail("restored checkpoint not finite")
+    for name, sets, steps, n_warp, n_conv in TRAIN_RUNS:
+        out = os.path.join(tmp, name)
+        argv = ["train-source", "--config", CONFIG, "--synthetic",
+                "--out", out, "--device", DEVICE]
+        for kv in [f"source.steps={steps}", "run.log_every=1", *sets]:
+            argv += ["--set", kv]
+        torch.cuda.synchronize()
+        wk.LAUNCHES = tk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (wk.LAUNCHES, tk.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        if rc != 0:
+            fail(f"train-source {name} returned {rc}")
+        losses, dice = _losses(out)
+        runs[name] = losses
+        print(f"train-source {name}: {steps} steps, cli wall {wall:.1f} "
+              f"s; launches warp {got[0]}, conv_stats {got[1]}; loss "
+              f"first {losses[0]:.6f} last {losses[-1]:.6f}; val_dice "
+              f"{[round(d, 4) for d in dice]}; checkpoints "
+              f"{sorted(os.listdir(out))}", flush=True)
+        if got != (n_warp * steps, n_conv * steps):
+            fail(f"train-source {name}: launches {got}, expected "
+                 f"{(n_warp * steps, n_conv * steps)}")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            fail(f"train-source {name}: losses {losses}")
+    full = runs["kernel"]
+    first, last = np.mean(full[:10]), np.mean(full[-10:])
+    rel = abs(full[0] - runs["plain"][0]) / abs(runs["plain"][0])
+    print(f"train-source: kernel path mean loss first 10 {first:.6f}, "
+          f"last 10 {last:.6f}; step-1 loss kernel {full[0]!r} plain "
+          f"{runs['plain'][0]!r} (rel {rel:.2e}); two 5-step kernel "
+          f"runs {'equal' if runs['kernel-5a'] == runs['kernel-5b'] else 'DIFFER'}",
+          flush=True)
+    if not last < first:
+        fail(f"kernel path loss did not fall: {first} -> {last}")
+    if rel > STEP1_RTOL:
+        fail(f"step-1 loss kernel/plain rel diff {rel} > {STEP1_RTOL}")
+    if runs["kernel-5a"] != runs["kernel-5b"]:
+        fail(f"seeded kernel runs differ: {runs['kernel-5a']} vs "
+             f"{runs['kernel-5b']}")
+    if _losses(os.path.join(tmp, "kernel"))[1] == []:
+        fail("val_dice never logged")
+    # the trained checkpoint, served
+    cfg = config_mod.load_config(CONFIG)
+    ckpt = os.path.join(tmp, "kernel", f"step_{TRAIN_STEPS:08d}")
+    params, bn = weights.restore_source(ckpt, cfg, DEVICE)
+    rng = np.random.default_rng(SEED)
+    vol, _ = synthetic.make_volume(rng, "mri", depth=16, size=SIZE)
+    vol_path = os.path.join(tmp, "in", "case1.npz")
+    os.makedirs(os.path.dirname(vol_path))
+    volumes.save_volume(vol_path, vol)
+    pred_dir = os.path.join(tmp, "pred")
+    fk.LAUNCHES = 0
+    rc = cli.main(["predict", "--config", CONFIG, "--ckpt",
+                   os.path.join(tmp, "kernel"), "--input", vol_path,
+                   "--out", pred_dir, "--source-only", "--device",
+                   DEVICE, *(a for kv in SETS for a in ("--set", kv))])
+    mask = volumes.load_volume_with_spacing(
+        os.path.join(pred_dir, "case1_pred.npz"))[0]
+    counts = np.bincount(mask.astype(np.int64).ravel(), minlength=5)
+    print(f"predict from the trained checkpoint: mask {list(mask.shape)}"
+          f" classes {counts.tolist()}, fused conv launches "
+          f"{fk.LAUNCHES}", flush=True)
+    if rc != 0 or mask.shape != (16, SIZE, SIZE) or \
+            not set(np.unique(mask).tolist()) <= set(range(5)):
+        fail(f"predict from the trained checkpoint: rc {rc}, mask "
+             f"{mask.shape} {np.unique(mask)}")
+    if not all(torch.isfinite(t).all() for t in
+               tree.leaves(params) + tree.leaves(bn)):
+        fail("restored checkpoint not finite")
     return launches, time_train_step(torch)
+
+
+def profile_steps(torch, step, state, data, label: str, n: int = 3):
+    """Run ``n`` more steps under ``torch.profiler`` and print the host
+    clock per step, the device's busy time per step (the union of its
+    kernels' intervals) and its idle share of the window, and the kernels
+    that take the most device time.  A trace with no device events prints
+    "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, _ = step(state, data, 1000 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    if not spans:
+        print(f"{label} profile: {wall / n:.2f} ms/step; device time not "
+              "measured (no device events in the trace)", flush=True)
+        return
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy /= 1000.0
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{label} profile ({n} steps): {wall / n:.2f} ms/step on the host "
+          f"clock, device busy {busy / n:.2f} ms/step, idle "
+          f"{100 * (1 - busy / wall):.1f}%, {len(kernels) / n:.0f} kernels "
+          "per step; top device time per step: "
+          + "; ".join(f"{k[:60]} {t / 1000 / n:.2f} ms" for k, t in top),
+          flush=True)
 
 
 def time_train_step(torch):
@@ -705,8 +885,262 @@ def time_train_step(torch):
               f"{TIMED_RUNS} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
+        profile_steps(torch, step, state, data, f"train step {name}")
         del state
     return out
+
+
+def phase_stem(torch, sk):
+    """Phase 7: the thin stem through its kernel, held against the plain
+    conv under autograd; returns the kernel's JSON fields."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shape, k = (BATCH, SIZE, SIZE, 3), 16
+    x = torch.randn(shape, device=DEVICE, generator=gen)
+    w = torch.randn((3, 3, 3, k), device=DEVICE, generator=gen) \
+        * math.sqrt(2.0 / 27)
+    bn = {"scale": torch.rand(k, device=DEVICE, generator=gen) + 0.5,
+          "bias": torch.randn(k, device=DEVICE, generator=gen) * 0.1}
+    st = {"bn": {"mean": torch.zeros(k, device=DEVICE),
+                 "var": torch.ones(k, device=DEVICE)}}
+    r = torch.randn(shape[:3] + (k,), device=DEVICE, generator=gen)
+
+    def run(use_kernel, input_grad=False):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        h, new = sk.stem_apply_cf({"conv": {"w": wg}, "bn": bn}, st, xg,
+                                  train=True, momentum=0.99, eps=1e-5,
+                                  use_kernel=use_kernel,
+                                  input_grad=input_grad)
+        dx, dw = torch.autograd.grad((h * r).sum(), (xg, wg),
+                                     allow_unused=True)
+        torch.cuda.synchronize()
+        return h.detach(), new["bn"], dx, dw
+
+    # the path: one train-mode stem, forward + weight gradient
+    sk.LAUNCHES = 0
+    h, new_bn, dx, dw = run(True)
+    launches = sk.LAUNCHES
+    if launches != 1:
+        fail(f"thin stem: {launches} kernel launches, expected 1")
+    # autograd of the plain conv gives dx whatever input_grad says
+    rh, rbn, dx_p, rdw = run(False)
+    y = sk.stem_conv_forward(x, w)
+    torch.cuda.synchronize()
+    ry = sk.stem_conv_nhwc_reference(x, w)
+    err = (y - ry).abs().max().item()
+    dw_rel = ((dw - rdw).abs().max() / rdw.abs().max()).item()
+    _, _, dx_k, _ = run(True, input_grad=True)
+    dx_rel = ((dx_k - dx_p).abs().max() / dx_p.abs().max()).item()
+    ok = (torch.allclose(y, ry, rtol=RTOL, atol=ATOL)
+          and torch.allclose(h, rh, rtol=RTOL, atol=ATOL)
+          and all(torch.allclose(new_bn[s_], rbn[s_], rtol=RTOL, atol=ATOL)
+                  for s_ in ("mean", "var")))
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    t_k = gpu_time_ms(lambda: sk.stem_conv_forward(x, w), torch)
+    t_p = gpu_time_ms(lambda: sk.stem_conv_nhwc_reference(x, w), torch)
+    xl = x.permute(0, 3, 1, 2)
+    t_l = gpu_time_ms(lambda: F.conv2d(xl, w_oihw, padding=1), torch)
+    b_ms, b_by = bound(*conv_work(shape, k, 4, 4))
+    print(f"thin stem x={list(shape)} k={k}: y max_abs_err={err:.3e}, dw "
+          f"rel {dw_rel:.2e}, dx {'None' if dx is None else 'computed'} by "
+          f"default, with input_grad rel {dx_rel:.2e}; kernel_ms={t_k:.4f} "
+          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.4f} "
+          f"({b_by}); launches {launches}", flush=True)
+    if not ok:
+        fail(f"thin stem disagrees with plain: y max abs err {err}")
+    if dx is not None or max(dw_rel, dx_rel) > GRAD_RTOL:
+        fail(f"thin stem gradients: dx {dx is not None}, dw rel {dw_rel}, "
+             f"dx rel {dx_rel}")
+    return dict(launches=launches, max_abs_err=err, ms=t_k, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+
+
+def _adapt_metrics(out_dir):
+    """Per-step d_loss, g_loss and d_acc of an adapt run."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {k: [r[k] for r in recs if "g_loss" in r]
+            for k in ("d_loss", "g_loss", "d_acc")}
+
+
+def phase_adapt(torch, wk, tk, tmp, source_dir):
+    """Phase 8: full-width adapt through the CLI (ADAPT_RUNS) from the
+    source run ``source_dir``; returns ([warp launches, conv-moments
+    launches] of the runs, the kernel run's directory, {path: ms/step})."""
+    from mcmda_tpu_torch import cli
+
+    launches = [0, 0]
+    runs = {}
+    for name, sets, steps, n_warp, n_conv in ADAPT_RUNS:
+        out = os.path.join(tmp, "adapt-" + name)
+        argv = ["adapt", "--config", CONFIG, "--synthetic", "--source-ckpt",
+                source_dir, "--out", out, "--device", DEVICE]
+        for kv in [f"adapt.steps={steps}", "run.log_every=1", *sets]:
+            argv += ["--set", kv]
+        torch.cuda.synchronize()
+        wk.LAUNCHES = tk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (wk.LAUNCHES, tk.LAUNCHES)
+        launches[0] += got[0]
+        launches[1] += got[1]
+        if rc != 0:
+            fail(f"adapt {name} returned {rc}")
+        m = _adapt_metrics(out)
+        runs[name] = m
+        with open(os.path.join(out, "selection.json")) as f:
+            sel = json.load(f)
+        print(f"adapt {name}: {steps} steps, cli wall {wall:.1f} s; "
+              f"launches warp {got[0]}, conv_stats {got[1]}; d_loss first "
+              f"{m['d_loss'][0]:.6f} last {m['d_loss'][-1]:.6f}; g_loss "
+              f"first {m['g_loss'][0]:.6f} last {m['g_loss'][-1]:.6f}; "
+              f"d_acc last {m['d_acc'][-1]:.4f}; selected step "
+              f"{sel['best_step']}; files {sorted(os.listdir(out))}",
+              flush=True)
+        if got != (n_warp * steps, n_conv * steps):
+            fail(f"adapt {name}: launches {got}, expected "
+                 f"{(n_warp * steps, n_conv * steps)}")
+        if any(len(v) != steps or not np.isfinite(v).all()
+               for v in m.values()):
+            fail(f"adapt {name}: metrics {m}")
+        if not os.path.exists(os.path.join(
+                out, f"step_{sel['best_step']:08d}.npz")):
+            fail(f"adapt {name}: selected step {sel['best_step']} not "
+                 "materialized")
+    kernel_dir = os.path.join(tmp, "adapt-kernel")
+    snaps = sorted(os.listdir(os.path.join(kernel_dir, "snapshots")))
+    if snaps != ["step_00000010.png", "step_00000020.png"]:
+        fail(f"adapt kernel: snapshots {snaps}")
+    for sn in snaps:
+        with open(os.path.join(kernel_dir, "snapshots", sn), "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                fail(f"adapt kernel: {sn} is not a PNG")
+    a, b = runs["kernel-5a"], runs["kernel-5b"]
+    print(f"adapt: two 5-step kernel runs "
+          f"{'equal' if a == b else 'DIFFER'}; snapshots {snaps}",
+          flush=True)
+    if a["d_loss"] != b["d_loss"] or a["g_loss"] != b["g_loss"]:
+        fail(f"seeded adapt runs differ: {a} vs {b}")
+    for kern, plain, tol in (("kernel-f32", "plain-f32", STEP1_RTOL),
+                             ("kernel-5a", "plain", ADAPT_BF16_STEP1_RTOL),
+                             ("kernel-5a", "shipped", STEP1_RTOL)):
+        k_m, p_m = runs[kern], runs[plain]
+        rel = {k: abs(p_m[k][0] - k_m[k][0]) / abs(k_m[k][0])
+               for k in ("d_loss", "g_loss")}
+        print(f"adapt step-1 {kern} / {plain}: d_loss {k_m['d_loss'][0]!r}"
+              f" / {p_m['d_loss'][0]!r} (rel {rel['d_loss']:.2e}), g_loss "
+              f"{k_m['g_loss'][0]!r} / {p_m['g_loss'][0]!r} (rel "
+              f"{rel['g_loss']:.2e}); held to {tol}", flush=True)
+        if max(rel.values()) > tol:
+            fail(f"adapt step-1 {kern}/{plain} rel diff {rel} > {tol}")
+    return launches, kernel_dir, time_adapt_step(torch, source_dir)
+
+
+def time_adapt_step(torch, source_dir):
+    """Median ms/step of make_adapt_step over TIMED_RUNS steps after 5
+    warm-up steps, on the kernel path and the plain path (same data and
+    source checkpoint)."""
+    from mcmda_tpu_torch import cli, weights
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import pipeline, synthetic, volumes
+    from mcmda_tpu_torch.train import adapt
+
+    base = config_mod.load_config(CONFIG)
+    data = {}
+    for name, dom in (("src", "mri"), ("tgt", "ct")):
+        vols, _ = synthetic.make_dataset(0, dom, 4, max(16, SIZE // 4), SIZE)
+        data[name] = pipeline.to_device_arrays(
+            volumes.volumes_to_slices(vols, context=3), device=DEVICE)
+    params, bn = weights.restore_source(cli._resolve_ckpt(source_dir), base,
+                                        DEVICE)
+    out = {}
+    for name, sets in (("kernel", ["segmenter.train_fused=pallas"]),
+                       ("plain", ["data.warp=xla",
+                                  "segmenter.train_fused=none"])):
+        cfg = config_mod.load_config(CONFIG, sets)
+        state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
+        step = adapt.make_adapt_step(cfg, sample_from_device=True)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(5 + TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, data, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            fail(f"timed adapt {name} step: {metrics}")
+        out[name] = statistics.median(times[5:])
+        print(f"adapt step {name}: {out[name]:.2f} ms/step (median of "
+              f"{TIMED_RUNS} after 5 warm-up; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
+              flush=True)
+        profile_steps(torch, step, state, data, f"adapt step {name}")
+        del state
+    return out
+
+
+def phase_evaluate(torch, fk, tmp, run_dir, n_sites):
+    """Phase 9: evaluate phase 8's kernel run on the fused path, then serve
+    its selected checkpoint with predict; returns the fused conv's
+    launches."""
+    from mcmda_tpu_torch import cli
+    from mcmda_tpu_torch.data import synthetic, volumes
+
+    with open(os.path.join(run_dir, "selection.json")) as f:
+        best = json.load(f)["best_step"]
+    selected = os.path.join(run_dir, f"step_{best:08d}")
+    sets = [a for kv in SETS for a in ("--set", kv)]
+    args = cli.build_parser().parse_args(
+        ["evaluate", "--config", CONFIG, "--synthetic", "--ckpt", run_dir,
+         "--device", DEVICE, *sets])
+    fk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    agg = cli.cmd_evaluate(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_eval = fk.LAUNCHES
+    # --synthetic-volumes 4 holds out one 64-slice target volume
+    batches = -(-max(16, SIZE // 4) // BATCH)
+    mean = agg["mean"]
+    print(f"evaluate {os.path.basename(args.ckpt)}: cli wall {wall:.1f} s; "
+          f"fused conv launches {n_eval} = {n_sites} x {batches} batches; "
+          f"mean Dice {mean['dice']:.4f} ASSD {mean['assd']:.3f} HD95 "
+          f"{mean['hd95']:.3f} misses {mean['assd_misses']}", flush=True)
+    if args.ckpt != selected:
+        fail(f"evaluate resolved {args.ckpt}, not the selected {selected}")
+    if n_eval != n_sites * batches:
+        fail(f"evaluate: {n_eval} fused conv launches, expected "
+             f"{n_sites} x {batches}")
+    if not all(math.isfinite(mean[k]) for k in ("dice", "assd", "hd95")):
+        fail(f"evaluate: table not finite {mean}")
+    vol, _ = synthetic.make_volume(np.random.default_rng(SEED + 1), "ct",
+                                   depth=16, size=SIZE)
+    vol_path = os.path.join(tmp, "in-adapt", "case2.npz")
+    os.makedirs(os.path.dirname(vol_path))
+    volumes.save_volume(vol_path, vol)
+    pred_dir = os.path.join(tmp, "pred-adapt")
+    fk.LAUNCHES = 0
+    if cli._resolve_ckpt(run_dir) != selected:
+        fail("predict would not serve the selected checkpoint")
+    rc = cli.main(["predict", "--config", CONFIG, "--ckpt", run_dir,
+                   "--input", vol_path, "--out", pred_dir, "--device",
+                   DEVICE, *sets])
+    n_pred = fk.LAUNCHES
+    mask = volumes.load_volume_with_spacing(
+        os.path.join(pred_dir, "case2_pred.npz"))[0]
+    counts = np.bincount(mask.astype(np.int64).ravel(), minlength=5)
+    print(f"predict {os.path.basename(selected)}: mask {list(mask.shape)} "
+          f"classes {counts.tolist()}, fused conv launches {n_pred}",
+          flush=True)
+    if rc != 0 or mask.shape != (16, SIZE, SIZE) or \
+            n_pred != -(-16 // BATCH) * n_sites:
+        fail(f"predict of the adapted run: rc {rc}, mask {mask.shape}, "
+             f"launches {n_pred}")
+    return n_eval + n_pred
 
 
 def main() -> int:
@@ -722,6 +1156,7 @@ def main() -> int:
         from mcmda_tpu_torch.data import pipeline
         from mcmda_tpu_torch.kernels import build
         from mcmda_tpu_torch.kernels import fused_conv as fk
+        from mcmda_tpu_torch.kernels import thin_conv as sk
         from mcmda_tpu_torch.kernels import train_conv as tk
         from mcmda_tpu_torch.kernels import warp as wk
     except ImportError as e:
@@ -753,7 +1188,7 @@ def main() -> int:
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
 
     # 3. kernel vs plain
-    worst, ms, plain_ms, n_sites = phase_kernel(cfg.segmenter, torch, fk)
+    n_sites, fused = phase_kernel(cfg.segmenter, torch, fk)
 
     # 4. full-width predict
     launches = phase_predict(cfg, torch, fk, n_sites)
@@ -762,10 +1197,27 @@ def main() -> int:
     train_cfg = config_mod.load_config(CONFIG)
     fields = phase_train_kernels(train_cfg, torch, wk, tk, pipeline)
 
-    # 6. full-width train-source
-    (warp_launches, conv_launches), step_ms = phase_train(torch, wk, tk, fk)
-    print(f"train step ms: kernel path {step_ms['kernel']:.2f}, plain path "
-          f"{step_ms['plain']:.2f}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 6. full-width train-source
+        source_dir = os.path.join(tmp, "source")
+        (warp_launches, conv_launches), step_ms = phase_train(
+            torch, wk, tk, fk, source_dir)
+        print(f"train step ms: kernel path {step_ms['kernel']:.2f}, plain "
+              f"path {step_ms['plain']:.2f}", flush=True)
+
+        # 7. the thin stem
+        stem = phase_stem(torch, sk)
+
+        # 8. full-width adapt from phase 6's kernel run
+        (w_n, c_n), adapt_dir, adapt_ms = phase_adapt(
+            torch, wk, tk, tmp, os.path.join(source_dir, "kernel"))
+        warp_launches += w_n
+        conv_launches += c_n
+        print(f"adapt step ms: kernel path {adapt_ms['kernel']:.2f}, plain "
+              f"path {adapt_ms['plain']:.2f}", flush=True)
+
+        # 9. evaluate the adapted run on the fused path
+        launches += phase_evaluate(torch, fk, tmp, adapt_dir, n_sites)
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",
@@ -773,9 +1225,7 @@ def main() -> int:
         "source": "mcmda_tpu_torch/kernels/csrc/fused_conv.cu",
         "replaces": "mcmda_tpu/kernels/fused_conv.py:101",
         "launches": launches,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **fused,
     }, {
         "name": "conv_stats",
         "route": "cuda",
@@ -790,6 +1240,12 @@ def main() -> int:
         "replaces": "mcmda_tpu/kernels/warp.py:150",
         "launches": warp_launches,
         **fields["warp_affine"],
+    }, {
+        "name": "stem_conv",
+        "route": "cuda",
+        "source": "mcmda_tpu_torch/kernels/csrc/thin_conv.cu",
+        "replaces": "mcmda_tpu/kernels/thin_conv.py:68",
+        **stem,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,14 +1,19 @@
-"""Command-line entry points: the ``train-source`` and ``predict``
-subcommands of the JAX package's CLI (``mcmda_tpu/cli.py``), on PyTorch::
+"""Command-line entry points: the ``train-source``, ``adapt``,
+``evaluate`` and ``predict`` subcommands of the JAX package's CLI
+(``mcmda_tpu/cli.py``), on PyTorch::
 
     python -m mcmda_tpu_torch train-source --config configs/mri2ct.json \\
         --synthetic --out runs/src --set segmenter.train_fused=pallas
+    python -m mcmda_tpu_torch adapt --config configs/mri2ct.json \\
+        --synthetic --source-ckpt runs/src --out runs/adapt
+    python -m mcmda_tpu_torch evaluate --config configs/mri2ct.json \\
+        --synthetic --ckpt runs/adapt --set run.use_pallas=true
     python -m mcmda_tpu_torch predict --config configs/mri2ct.json \\
         --ckpt runs/adapt --input vols/ --out preds/ --set run.use_pallas=true
 
-``train-source`` writes ``step_XXXXXXXX.npz`` checkpoints in the JAX
-package's key layout.  ``--ckpt`` takes a run directory (resolved through
-``selection.json``, else the latest step) or a step path; only npz
+``train-source`` and ``adapt`` write ``step_XXXXXXXX.npz`` checkpoints in
+the JAX package's key layout.  ``--ckpt`` takes a run directory (resolved
+through ``selection.json``, else the latest step) or a step path; only npz
 checkpoints are read.  ``--device`` (default ``cuda``) picks the device; a
 missing GPU is an error, never a quiet switch to the CPU.
 """
@@ -16,6 +21,7 @@ missing GPU is an error, never a quiet switch to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -190,19 +196,26 @@ def cmd_predict(args, use_kernel: bool = True):
 
 
 def _get_data(args, cfg):
-    """Labeled source volumes (vols, labels) of ``--direction``: generated
-    phantoms with ``--synthetic``, else the MMWHS layout under
-    ``--data-root``."""
+    """((src_vols, src_labs), tgt_train_vols, (tgt_test_vols,
+    tgt_test_labs)) of ``--direction``: generated phantoms with
+    ``--synthetic`` (the last quarter of the target volumes held out for
+    test), else the MMWHS layout under ``--data-root``."""
     if args.synthetic:
         from mcmda_tpu_torch.data import synthetic
         size = cfg.data.slice_size
-        src_dom = "mri" if args.direction == "mri2ct" else "ct"
-        return synthetic.make_dataset(0, src_dom, args.synthetic_volumes,
-                                      max(16, size // 4), size)
+        depth = max(16, size // 4)
+        src_dom, tgt_dom = (("mri", "ct") if args.direction == "mri2ct"
+                            else ("ct", "mri"))
+        sv, sl = synthetic.make_dataset(0, src_dom, args.synthetic_volumes,
+                                        depth, size)
+        tv, tl = synthetic.make_dataset(0, tgt_dom, args.synthetic_volumes,
+                                        depth, size)
+        n_test = max(1, args.synthetic_volumes // 4)
+        return (sv, sl), tv[:-n_test], (tv[-n_test:], tl[-n_test:])
     from mcmda_tpu_torch.data import mmwhs
     if not args.data_root:
-        raise SystemExit("train-source: pass --data-root or --synthetic")
-    return mmwhs.load_benchmark(args.data_root, args.direction)[0]
+        raise SystemExit(f"{args.cmd}: pass --data-root or --synthetic")
+    return mmwhs.load_benchmark(args.data_root, args.direction)
 
 
 def cmd_train_source(args):
@@ -222,7 +235,7 @@ def cmd_train_source(args):
     if device.type == "cuda":
         # deterministic cuDNN algorithms: a seeded run repeats bit for bit
         torch.backends.cudnn.deterministic = True
-    src_vols, src_labs = _get_data(args, cfg)
+    src_vols, src_labs = _get_data(args, cfg)[0]
     ds = vio.volumes_to_slices(src_vols, src_labs,
                                context=cfg.data.context_slices,
                                drop_empty=True)
@@ -267,27 +280,238 @@ def cmd_train_source(args):
     return 0
 
 
+def cmd_adapt(args):
+    """T3 + T2: the critic pretrain phase (``adapt.pretrain_steps``), then
+    adversarial adaptation from a source checkpoint, with class-ratio
+    checkpoint selection (``selection.json``, the selected checkpoint
+    materialized at the end) and snapshot PNGs at every checkpoint.  The
+    two datasets live on the device and each step samples there when they
+    are under 1 GiB together; two host samplers feed the steps otherwise."""
+    import itertools
+
+    from mcmda_tpu_torch import weights
+    from mcmda_tpu_torch.data import pipeline, volumes as vio
+    from mcmda_tpu_torch.evaluation import snapshots
+    from mcmda_tpu_torch.train import adapt, loop
+    from mcmda_tpu_torch.utils import checkpoint, logging as mlog
+
+    cfg = config_mod.load_config(args.config, args.set)
+    device = _device(args.device)
+    if device.type == "cuda":
+        # deterministic cuDNN algorithms: a seeded run repeats bit for bit
+        torch.backends.cudnn.deterministic = True
+    (src_vols, src_labs), tgt_train, _ = _get_data(args, cfg)
+    src_ds = vio.volumes_to_slices(src_vols, src_labs,
+                                   context=cfg.data.context_slices,
+                                   drop_empty=True)
+    tgt_ds = vio.volumes_to_slices(tgt_train,
+                                   context=cfg.data.context_slices)
+    print(f"adaptation: {len(src_ds)} source / {len(tgt_ds)} target slices",
+          flush=True)
+    # selection inputs: up to 64 target slices spread evenly, and the class
+    # fractions of the source labels
+    probe_idx = np.linspace(0, len(tgt_ds) - 1,
+                            min(64, len(tgt_ds))).astype(int)
+    probe_images = tgt_ds.images[probe_idx]
+    ref_fracs = adapt.label_fractions(src_labs, cfg.data.num_classes)
+    # K1 handoff: the source checkpoint goes into the frozen path and the DAM
+    params, bn = weights.restore_source(_resolve_ckpt(args.source_ckpt), cfg,
+                                        device)
+    state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
+    if args.from_ckpt:
+        state = checkpoint.restore(_resolve_ckpt(args.from_ckpt), state)
+        start = int(state.step)
+    else:
+        state, start = loop.maybe_resume(args.out, state)
+
+    on_device = (src_ds.images.nbytes + tgt_ds.images.nbytes) < 1 << 30
+    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
+          flush=True)
+    if on_device:
+        device_data = {"src": pipeline.to_device_arrays(src_ds,
+                                                        device=device),
+                       "tgt": pipeline.to_device_arrays(tgt_ds,
+                                                        device=device)}
+
+        def make_feed():
+            return itertools.repeat(device_data)
+    else:
+        bs = cfg.data.batch_size
+        src_sampler = iter(pipeline.BatchSampler(src_ds, bs,
+                                                 seed=cfg.run.seed + 3))
+        tgt_sampler = iter(pipeline.BatchSampler(tgt_ds, bs,
+                                                 seed=cfg.run.seed + 4))
+
+        def make_feed():
+            pairs = ({"src_image": sb["image"], "tgt_image": tb["image"]}
+                     for sb, tb in zip(src_sampler, tgt_sampler))
+            return pipeline.to_device(pairs, device)
+
+    logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
+                                tensorboard_dir=os.path.join(args.out, "tb"))
+    snap_batch = tgt_ds.images[:4]
+    snap_fwd = adapt.adapted_forward(cfg)
+
+    def snapshot_cb(step, st, _metrics=None):
+        with torch.no_grad():
+            probs = snap_fwd(st, torch.from_numpy(
+                np.ascontiguousarray(snap_batch, np.float32)).to(device))
+        snapshots.save_snapshot(
+            os.path.join(args.out, "snapshots", f"step_{step:08d}.png"),
+            snap_batch, probs.argmax(-1).cpu().numpy())
+
+    # unsupervised checkpoint selection: the primary signal per
+    # adapt.select_signal, the other one logged; each probe tick scores the
+    # live (and, with dam_ema, the averaged) weights and is read one tick
+    # later
+    eq_selector = adapt.EquilibriumSelector(
+        warmup_step=cfg.adapt.pretrain_steps + cfg.adapt.steps // 5)
+    cr_selector = adapt.ClassRatioSelector(
+        ref_fracs, warmup_step=adapt.select_warmup(cfg),
+        policy=cfg.adapt.select_policy, topk=cfg.adapt.select_topk,
+        smooth_window=adapt.smooth_window(cfg))
+    selector = cr_selector if cfg.adapt.select_signal == "class_ratio" \
+        else eq_selector
+    select_probe = adapt.SelectionProbe(
+        adapt.make_select_bundle(cfg, probe_images,
+                                 dual=cfg.adapt.dam_ema > 0),
+        primary=selector, cr_selector=cr_selector, eq_selector=eq_selector,
+        logger=logger, save_dir=args.out)
+    sel_every = cfg.adapt.select_every or cfg.run.ckpt_every
+    sel_every = min(sel_every, max(1, cfg.adapt.steps // 4))  # short runs
+
+    def mk_step(**kw):
+        return adapt.make_adapt_step(cfg, sample_from_device=on_device, **kw)
+
+    if cfg.adapt.pretrain_steps and start < cfg.adapt.pretrain_steps:
+        state, _ = loop.run(mk_step(train_g=False), state, make_feed(),
+                            cfg.adapt.pretrain_steps, seed=cfg.run.seed + 5,
+                            log_every=cfg.run.log_every, logger=logger,
+                            start_step=start)
+        start = cfg.adapt.pretrain_steps
+    state, _ = loop.run(mk_step(), state, make_feed(),
+                        cfg.adapt.pretrain_steps + cfg.adapt.steps,
+                        seed=cfg.run.seed + 6, log_every=cfg.run.log_every,
+                        ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
+                        logger=logger, start_step=start,
+                        callback=snapshot_cb, probe_every=sel_every,
+                        probe=select_probe,
+                        protect_steps=select_probe.protect_steps)
+    select_probe.finalize()  # the last deferred tick + the smoothing tail
+    best = selector.best_step
+    if best is not None:
+        print(f"selected checkpoint ({selector.signal}): step {best} "
+              f"(score {selector.best_score:.4f})", flush=True)
+        base = os.path.join(args.out, f"step_{best:08d}")
+        if select_probe.best_stash and not os.path.exists(base + ".npz"):
+            # the final state with the stashed DAM / target BN of the pick;
+            # the frozen paths never change, and the optimizer state does
+            # not matter to evaluation.  The stash holds the chosen weight
+            # variant, so ema_w = 0 makes any later --weights avg fall back
+            # to exactly those weights.
+            stash = select_probe.best_stash
+            sel_state = dataclasses.replace(
+                state, dam_params=stash["dam_params"],
+                tgt_bn=stash["tgt_bn"],
+                step=torch.tensor(best, dtype=torch.int32))
+            if sel_state.ema_w is not None:
+                sel_state = dataclasses.replace(
+                    sel_state, ema_w=torch.zeros_like(sel_state.ema_w))
+            checkpoint.save(args.out, sel_state, step=best)
+            print(f"materialized selected checkpoint at step {best}",
+                  flush=True)
+    logger.close()
+    print(f"done; final checkpoint in {args.out}", flush=True)
+    return 0
+
+
+def cmd_evaluate(args, use_kernel: bool = True):
+    """Dice / ASSD / HD95 of a checkpoint on the labelled target test
+    volumes, through the eval forward ``predict`` serves (the fused path
+    under ``run.use_pallas``).  Prints the table and returns the metrics;
+    ``--json-out`` writes them."""
+    from mcmda_tpu_torch.data import splits
+    from mcmda_tpu_torch.evaluation import inference, postprocess as pp_mod
+    from mcmda_tpu_torch.evaluation import report
+
+    cfg = config_mod.load_config(args.config, args.set)
+    device = _device(args.device)
+    args.ckpt = _resolve_ckpt(args.ckpt)
+    _, _, (test_vols, test_labs) = _get_data(args, cfg)
+    fwd = _restore_eval_forward(cfg, args, device, use_kernel)
+    tta = inference.get_tta(args.tta if args.tta is not None
+                            else cfg.run.eval_tta)
+    if tta is not None:
+        fwd = tta(fwd)
+    pp = pp_mod.get(args.postprocess if args.postprocess is not None
+                    else cfg.run.eval_postprocess)
+    agg = report.evaluate_volumes(fwd, test_vols, test_labs,
+                                  context=cfg.data.context_slices,
+                                  batch_size=cfg.data.batch_size,
+                                  structures=splits.STRUCTURES,
+                                  postprocess=pp, device=device)
+    if pp is not None:
+        print("raw predictions:")
+        print(report.format_table(agg["raw"]))
+        print("largest-connected-component filtered:")
+    print(report.format_table(agg), flush=True)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(agg, f, indent=2)
+    return agg
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="mcmda_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    def common(sp):
+        sp.add_argument("--config", default=None,
+                        help="ExperimentConfig JSON (default: built-in)")
+        sp.add_argument("--set", action="append", metavar="K.EY=VAL",
+                        help="config override, e.g. source.steps=100")
+        sp.add_argument("--direction", default="mri2ct",
+                        choices=["mri2ct", "ct2mri"])
+        sp.add_argument("--data-root", default=None,
+                        help="MMWHS root (see data/mmwhs.py layout)")
+        sp.add_argument("--synthetic", action="store_true",
+                        help="use the generated phantom dataset")
+        sp.add_argument("--synthetic-volumes", type=int, default=4)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device to run on (default cuda)")
+
     sp = sub.add_parser("train-source", help="supervised source training")
-    sp.add_argument("--config", default=None,
-                    help="ExperimentConfig JSON (default: built-in)")
-    sp.add_argument("--set", action="append", metavar="K.EY=VAL",
-                    help="config override, e.g. source.steps=100")
-    sp.add_argument("--direction", default="mri2ct",
-                    choices=["mri2ct", "ct2mri"])
-    sp.add_argument("--data-root", default=None,
-                    help="MMWHS root (see data/mmwhs.py layout)")
-    sp.add_argument("--synthetic", action="store_true",
-                    help="use the generated phantom dataset")
-    sp.add_argument("--synthetic-volumes", type=int, default=4)
+    common(sp)
     sp.add_argument("--out", required=True)
     sp.add_argument("--from-ckpt", default=None,
                     help="explicit resume checkpoint (default: --out latest)")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device to train on (default cuda)")
     sp.set_defaults(fn=cmd_train_source)
+
+    sp = sub.add_parser("adapt", help="critic pretrain + adaptation")
+    common(sp)
+    sp.add_argument("--source-ckpt", required=True,
+                    help="source run dir or step checkpoint")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--from-ckpt", default=None,
+                    help="explicit resume checkpoint (default: --out latest)")
+    sp.set_defaults(fn=cmd_adapt)
+
+    sp = sub.add_parser("evaluate", help="Dice / ASSD on the target test set")
+    common(sp)
+    sp.add_argument("--ckpt", required=True,
+                    help="run dir (resolves selection.json) or npz "
+                         "checkpoint")
+    sp.add_argument("--source-only", action="store_true")
+    sp.add_argument("--json-out", default=None)
+    sp.add_argument("--weights", default="auto",
+                    choices=["auto", "live", "avg"],
+                    help="adapted eval weights: EMA-averaged DAM (avg), the "
+                         "live DAM (live), or the selected / dam_ema>0 "
+                         "variant (auto)")
+    sp.add_argument("--postprocess", default=None, choices=["none", "cc"],
+                    help="default: run.eval_postprocess")
+    sp.add_argument("--tta", default=None, choices=["none", "flip"],
+                    help="default: run.eval_tta")
+    sp.set_defaults(fn=cmd_evaluate)
 
     sp = sub.add_parser(
         "predict", help="serving: write segmentation masks for unlabeled "

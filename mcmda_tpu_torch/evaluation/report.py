@@ -62,22 +62,49 @@ def _aggregate(per_vol, structures):
 def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
                      labels: Sequence[np.ndarray], *, context: int = 3,
                      batch_size: int = 8, spacing=None,
-                     structures: dict = STRUCTURES, device="cuda") -> dict:
+                     structures: dict = STRUCTURES,
+                     postprocess: Callable | None = None,
+                     device="cuda") -> dict:
     """Evaluate ``forward(images) -> probs`` over volumes -> aggregated
     metric table.
 
     ``spacing``: None (voxel units), one [3] spacing for all volumes, or a
-    per-volume sequence of spacings (mm-correct ASD).  ``agg["per_volume"]``
-    holds the per-structure metrics of each volume in input order.
+    per-volume sequence of spacings (mm-correct ASD).  ``postprocess``, a
+    ``(pred_vol, structures) -> pred_vol`` filter, is applied to each
+    predicted volume before its metrics; the unfiltered table is kept under
+    ``agg["raw"]``.  ``agg["per_volume"]`` holds the per-structure metrics
+    of each volume in input order.
     """
-    per_vol = []
+    per_vol, per_vol_raw = [], []
     for i, (vol, lab) in enumerate(zip(volumes, labels)):
         sp = spacing
         if sp is not None and np.ndim(sp) > 1:
             sp = spacing[i]
         pred = inference.predict_volume(forward, vol, context=context,
                                         batch_size=batch_size, device=device)
+        if postprocess is not None:
+            per_vol_raw.append(_metrics_one(pred, lab, structures, sp))
+            pred = postprocess(pred, structures)
         per_vol.append(_metrics_one(pred, lab, structures, sp))
     agg = _aggregate(per_vol, structures)
+    if postprocess is not None:
+        agg["raw"] = _aggregate(per_vol_raw, structures)
+        agg["raw"]["per_volume"] = per_vol_raw
     agg["per_volume"] = per_vol
     return agg
+
+
+_NON_STRUCTURE_KEYS = ("mean", "raw", "per_volume")
+
+
+def format_table(agg: dict) -> str:
+    """The paper's table: Dice (%), ASSD, HD95 and misses per structure."""
+    names = [n for n in agg if n not in _NON_STRUCTURE_KEYS] + ["mean"]
+    lines = [f"{'structure':>10} {'Dice':>8} {'ASSD':>8} {'HD95':>8} "
+             f"{'miss':>5}"]
+    for n in names:
+        miss = agg[n].get("assd_misses", 0)
+        hd = agg[n].get("hd95", float("nan"))
+        lines.append(f"{n:>10} {agg[n]['dice'] * 100:8.1f} "
+                     f"{agg[n]['assd']:8.2f} {hd:8.2f} {miss:5d}")
+    return "\n".join(lines)

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("fused_conv.cu", "train_conv.cu", "warp.cu")
+SOURCES = ("fused_conv.cu", "train_conv.cu", "warp.cu", "thin_conv.cu")
 HEADERS = ("conv_tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
         lib.mcmda_conv_stats.restype = i
         lib.mcmda_warp_affine.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.mcmda_warp_affine.restype = i
+        lib.mcmda_stem_conv.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.mcmda_stem_conv.restype = i
         _lib = lib
     return _lib
 

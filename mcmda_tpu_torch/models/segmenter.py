@@ -20,6 +20,7 @@ import torch
 from mcmda_tpu_torch.config import SegmenterConfig, torch_dtype
 from mcmda_tpu_torch.kernels import fused_conv as fk
 from mcmda_tpu_torch.ops import blocks, layers
+from mcmda_tpu_torch.utils.tree import tree_map
 
 
 def init(cfg: SegmenterConfig, *, generator: torch.Generator | None = None,
@@ -57,13 +58,17 @@ def _stage_params(params, dam_params, plug_depth, cfg: SegmenterConfig):
 
 
 def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
-          dam_params=None, plug_depth: str | None = None):
+          dam_params=None, plug_depth: str | None = None,
+          bn_train_stages: frozenset | None = None):
     """Forward pass (the JAX ``segmenter.apply``).
 
     ``train=True`` normalizes by batch statistics and returns updated BN
     state; under ``cfg.train_fused == "pallas"`` the wide tail's convs take
     the fused conv + BN-moments path (``ops/blocks.py``).  Eval mode uses
     the running statistics and returns ``state`` unchanged.
+    ``bn_train_stages`` restricts batch statistics to the named stages (the
+    ``adapt.hlm_bn="frozen"`` policy passes the DAM's): the others run in
+    eval mode and keep their running statistics.
 
     x [N,H,W,C] -> (logits [N,H,W,classes] f32, probs = softmax(logits),
     taps {stage name: activation}, new_state)."""
@@ -74,9 +79,11 @@ def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
     h = x.to(dtype)
     for spec, p in _stage_params(params, dam_params, plug_depth, cfg):
         st = state[spec.name]
+        stage_train = train and (bn_train_stages is None
+                                 or spec.name in bn_train_stages)
         if spec.name == "stem":
             h = layers.conv_apply(p["conv"], h, compute_dtype=dtype)
-            if train:
+            if stage_train:
                 h, bn_s = layers.bn_apply_train(p["bn"], st["bn"], h,
                                                 cfg.bn_momentum, cfg.bn_eps)
             else:
@@ -86,7 +93,7 @@ def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
             new_state[spec.name] = {"bn": bn_s}
         else:
             h, new_state[spec.name] = blocks.stage_apply(
-                p, st, h, spec, train=train, momentum=cfg.bn_momentum,
+                p, st, h, spec, train=stage_train, momentum=cfg.bn_momentum,
                 eps=cfg.bn_eps, compute_dtype=dtype, fused_train=fused_train)
         taps[spec.name] = h
     logits = layers.conv_apply(params["head"], h, compute_dtype=dtype)
@@ -160,6 +167,13 @@ def dam_split(params, cfg: SegmenterConfig, plug_depth: str):
     dam = {k: v for k, v in params.items() if k in dam_names}
     hlm = {k: v for k, v in params.items() if k not in dam_names}
     return dam, hlm
+
+
+def dam_init_from_source(params, cfg: SegmenterConfig, plug_depth: str):
+    """The target DAM's initial weights: a copy of the source stages up to
+    ``plug_depth``."""
+    dam, _ = dam_split(params, cfg, plug_depth)
+    return tree_map(lambda t: t.detach().clone(), dam)
 
 
 def dam_merge(dam_params, hlm_params):

@@ -166,3 +166,49 @@ def bilinear_upsample(x, factor: int):
     y = torch.einsum("oh,nhwc->nowc", my, x.float())
     y = torch.einsum("pw,nowc->nopc", mx, y)
     return y.to(x.dtype)
+
+
+def avg_pool(x, factor: int):
+    """Average-pool downsample of NHWC ``x`` by ``factor`` (VALID windows)."""
+    if factor == 1:
+        return x
+    y = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), factor)
+    return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x):
+    return x.mean((1, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(size: int, out: int, device) -> torch.Tensor:
+    """[out, size] f32 weights of ``jax.image.resize(method="bilinear")``
+    along one axis (``compute_weight_mat`` of jax's scale module): half-pixel
+    centres, the triangle kernel widened by size/out when it downsamples
+    (antialiasing), out-of-range taps dropped and the rest renormalised.
+    Built outside inference mode, as ``_upsample_matrix``."""
+    with torch.inference_mode(False):
+        inv = size / out
+        kscale = max(inv, 1.0)
+        src = (torch.arange(out, dtype=torch.float64) + 0.5) * inv - 0.5
+        x = (src[:, None] - torch.arange(size, dtype=torch.float64)[None, :]
+             ).abs() / kscale
+        m = torch.clamp_min(1.0 - x, 0.0)
+        total = m.sum(1, keepdim=True)
+        m = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                        m / torch.where(total != 0, total, 1.0), 0.0)
+        inside = (src >= -0.5) & (src <= size - 0.5)
+        return torch.where(inside[:, None], m, 0.0).to(device=device,
+                                                       dtype=torch.float32)
+
+
+def resize_to(x, hw):
+    """Bilinear resize of NHWC ``x`` to ``hw`` = (H, W), as
+    ``jax.image.resize(..., method="bilinear")``: antialiased when it
+    downsamples.  Two products with per-axis weight matrices, computed in
+    f32 and returned in ``x``'s dtype; their gradients are products too."""
+    my = _resize_matrix(x.shape[1], hw[0], x.device)
+    mx = _resize_matrix(x.shape[2], hw[1], x.device)
+    y = torch.einsum("oh,nhwc->nowc", my, x.float())
+    y = torch.einsum("pw,nowc->nopc", mx, y)
+    return y.to(x.dtype)

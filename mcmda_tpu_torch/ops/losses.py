@@ -1,7 +1,7 @@
-"""Supervised segmentation losses (counterpart of the segmentation part of
-``mcmda_tpu/ops/losses.py``): weighted cross-entropy + multi-class soft
-Dice.  All reduce to f32 scalars over the whole batch.  The adversarial
-losses come with adaptation."""
+"""Losses (counterpart of ``mcmda_tpu/ops/losses.py``): weighted
+cross-entropy + multi-class soft Dice for the segmenter, and the
+adversarial losses of the feature critic.  All reduce to f32 scalars over
+the whole batch."""
 
 from __future__ import annotations
 
@@ -44,3 +44,59 @@ def segmentation_loss(logits, probs, labels_onehot, xent_weight=1.0,
     xe = weighted_cross_entropy(logits, labels_onehot, class_weights)
     dl = soft_dice_loss(probs, labels_onehot)
     return xent_weight * xe + dice_weight * dl, {"xent": xe, "dice_loss": dl}
+
+
+# -------------------------------------------------------------- adversarial
+def _bce_logits(logits, target: float):
+    """Binary cross-entropy with logits in the softplus form."""
+    return torch.mean(torch.nn.functional.softplus(logits) - target * logits)
+
+
+def d_loss_nonsat(src_logits, tgt_logits, label_smooth: float = 0.0):
+    """Critic loss: source features classify as 1, target features as 0."""
+    real = 1.0 - label_smooth
+    return _bce_logits(src_logits.float(), real) + \
+        _bce_logits(tgt_logits.float(), 0.0)
+
+
+def g_loss_nonsat(tgt_logits):
+    """Generator (DAM) loss: target features classify as source."""
+    return _bce_logits(tgt_logits.float(), 1.0)
+
+
+def d_loss_lsgan(src_logits, tgt_logits, label_smooth: float = 0.0):
+    real = 1.0 - label_smooth
+    return 0.5 * (torch.mean((src_logits.float() - real) ** 2)
+                  + torch.mean(tgt_logits.float() ** 2))
+
+
+def g_loss_lsgan(tgt_logits):
+    return 0.5 * torch.mean((tgt_logits.float() - 1.0) ** 2)
+
+
+def gan_losses(kind: str):
+    """(d_loss_fn(src, tgt, smooth), g_loss_fn(tgt)) for a config string."""
+    if kind == "nonsat":
+        return d_loss_nonsat, g_loss_nonsat
+    if kind == "lsgan":
+        return d_loss_lsgan, g_loss_lsgan
+    raise ValueError(f"unknown gan_loss {kind!r}")
+
+
+def decision_boundary(kind: str) -> float:
+    """The critic's decision boundary for ``critic_accuracy``: logit 0 for
+    nonsat (probability 0.5); 0.5 for lsgan, the midpoint of the regression
+    targets 1 (source) and 0 (target)."""
+    if kind == "nonsat":
+        return 0.0
+    if kind == "lsgan":
+        return 0.5
+    raise ValueError(f"unknown gan_loss {kind!r}")
+
+
+def critic_accuracy(src_logits, tgt_logits, boundary: float = 0.0):
+    """Fraction of correct critic patch decisions; ~0.5 at the adversarial
+    equilibrium.  ``boundary`` must match the loss (``decision_boundary``)."""
+    correct = torch.mean((src_logits > boundary).float()) + \
+        torch.mean((tgt_logits <= boundary).float())
+    return 0.5 * correct

@@ -41,7 +41,8 @@ def run(step_fn: Callable, state, batches: Iterator, num_steps: int, *,
         seed: int = 0, log_every: int = 50, ckpt_every: int = 0,
         ckpt_dir: str | None = None, logger: mlog.MetricsLogger | None = None,
         start_step: int = 0, callback: Callable | None = None,
-        keep_checkpoints: int = 3):
+        keep_checkpoints: int = 3, protect_steps: Callable | None = None,
+        probe_every: int = 0, probe: Callable | None = None):
     """Drive ``step_fn(state, batch, seed)`` from ``start_step`` to
     ``num_steps``.
 
@@ -50,7 +51,11 @@ def run(step_fn: Callable, state, batches: Iterator, num_steps: int, *,
     metrics are read back one tick later (flushed on every exit path), so
     the host does not wait on the step it just queued.
     ``callback(step, state, metrics)`` fires at every checkpoint interval
-    with that step's metrics as floats.  Returns (state, last metrics)."""
+    with that step's metrics as floats.  ``probe(step, state, metrics)``
+    fires every ``probe_every`` steps, a cadence of its own, with the
+    metrics as device tensors (``adapt.SelectionProbe`` reads them one tick
+    later).  Prune keeps the steps ``protect_steps()`` names.  Returns
+    (state, last metrics)."""
     logger = logger or mlog.MetricsLogger(echo=False)
     root = prng.root_key(seed)
     last_metrics = {}
@@ -73,11 +78,17 @@ def run(step_fn: Callable, state, batches: Iterator, num_steps: int, *,
                               or step == num_steps - 1):
                 _flush_log()
                 pending_log = (step, metrics)
+            if probe is not None and probe_every and \
+                    (step + 1) % probe_every == 0:
+                probe(step + 1, state, metrics)
             if ckpt_every and step + 1 < num_steps and \
                     (step + 1) % ckpt_every == 0:
                 if ckpt_dir:
                     checkpoint.save(ckpt_dir, state, step=step + 1)
-                    checkpoint.prune(ckpt_dir, keep_checkpoints)
+                    checkpoint.prune(ckpt_dir, keep_checkpoints,
+                                     protect=(protect_steps()
+                                              if protect_steps else ()),
+                                     newest=step + 1)
                 if callback is not None:
                     callback(step + 1, state,
                              {k: float(v) for k, v in metrics.items()})

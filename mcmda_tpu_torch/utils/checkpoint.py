@@ -44,14 +44,21 @@ def _steps(ckpt_dir: str) -> list:
                   if (m := re.match(r"step_(\d+)\.npz$", n)))
 
 
-def prune(ckpt_dir: str, keep: int = 3, protect=()) -> None:
+def prune(ckpt_dir: str, keep: int = 3, protect=(),
+          newest: int | None = None) -> None:
     """Delete all but the newest ``keep`` checkpoints; steps in ``protect``
-    survive."""
+    (the selection's candidates) survive.  ``newest``, the step of a save
+    started just before, counts toward the newest ``keep`` even if its file
+    is not listed yet, as in the JAX package, whose saves are asynchronous
+    (the port's are not)."""
     if not os.path.isdir(ckpt_dir) or keep <= 0:
         return
-    for s in _steps(ckpt_dir)[:-keep]:
-        if s not in protect:
-            os.remove(os.path.join(ckpt_dir, f"step_{s:08d}.npz"))
+    steps = sorted(set(_steps(ckpt_dir))
+                   | ({newest} if newest is not None else set()))
+    for s in steps[:-keep]:
+        path = os.path.join(ckpt_dir, f"step_{s:08d}.npz")
+        if s not in protect and os.path.exists(path):
+            os.remove(path)
 
 
 def latest_step(ckpt_dir: str) -> int | None:

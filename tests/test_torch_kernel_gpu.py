@@ -9,7 +9,7 @@ skips without one.  On a GPU machine without jax::
 Tolerances: the convs rtol = atol = 1e-4 (both sides f32 with TF32 off;
 only the order of the summed products differs); the warp atol 1e-5 (its
 sampling coordinates are bitwise the plain version's; only the f32 blend
-rounds differently).
+rounds differently); the thin stem's gradients within 1e-4 of the largest.
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ import torch
 from mcmda_tpu_torch.config import DataConfig, SegmenterConfig, StageSpec
 from mcmda_tpu_torch.data import pipeline
 from mcmda_tpu_torch.kernels import fused_conv as fk
+from mcmda_tpu_torch.kernels import thin_conv as sk
 from mcmda_tpu_torch.kernels import train_conv as tk
 from mcmda_tpu_torch.kernels import warp as wk
 from mcmda_tpu_torch.models import segmenter
@@ -165,3 +166,73 @@ def test_train_wrappers_raise_instead_of_falling_back(cuda_device):
         wk.warp_affine(img, coefs, n_image=4)
     with pytest.raises(ValueError, match="contiguous"):
         wk.warp_affine(img.transpose(1, 2), coefs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,k", [(2, 32, 32, 3, 16), (3, 17, 19, 3, 8),
+                                       (1, 9, 40, 5, 32)])
+def test_thin_conv_kernel_matches_plain(cuda_device, n, h, w, c, k):
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
+        np.float32)).to(cuda_device)
+    wt = torch.from_numpy((0.2 * rng.normal(size=(3, 3, c, k))).astype(
+        np.float32)).to(cuda_device)
+    before = sk.LAUNCHES
+    got = sk.stem_conv_forward(x, wt)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    assert got.shape == (n, k, h, w) and got.is_contiguous()
+    torch.testing.assert_close(got, sk.stem_conv_nhwc_reference(x, wt),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grad", [False, True])
+def test_thin_conv_stem_gradients_match_plain(cuda_device, input_grad):
+    """stem_apply_cf in train mode through the kernel's StemConv against
+    the plain conv under autograd: output, dw, and dx (None by default)."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(
+        np.float32)).to(cuda_device)
+    p = {"conv": {"w": torch.from_numpy((0.2 * rng.normal(
+        size=(3, 3, 3, 16))).astype(np.float32)).to(cuda_device)},
+         "bn": {"scale": torch.ones(16, device=cuda_device),
+                "bias": torch.zeros(16, device=cuda_device)}}
+    st = {"bn": {"mean": torch.zeros(16, device=cuda_device),
+                 "var": torch.ones(16, device=cuda_device)}}
+    r = torch.from_numpy(rng.normal(size=(2, 32, 32, 16)).astype(
+        np.float32)).to(cuda_device)
+    out = []
+    for use_kernel in (True, False):
+        xg = x.clone().requires_grad_()
+        wg = p["conv"]["w"].clone().requires_grad_()
+        h, _ = sk.stem_apply_cf({"conv": {"w": wg}, "bn": p["bn"]}, st, xg,
+                                train=True, momentum=0.99, eps=1e-5,
+                                use_kernel=use_kernel, input_grad=input_grad)
+        dx, dw = torch.autograd.grad((h * r).sum(), (xg, wg),
+                                     allow_unused=True)
+        out.append((h, dx, dw))
+    (h, dx, dw), (rh, rdx, rdw) = out
+    torch.testing.assert_close(h, rh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, rdw, rtol=1e-4,
+                               atol=1e-4 * rdw.abs().max().item())
+    if input_grad:
+        torch.testing.assert_close(dx, rdx, rtol=1e-4,
+                                   atol=1e-4 * rdx.abs().max().item())
+    else:
+        assert dx is None
+
+
+@pytest.mark.cuda
+def test_thin_conv_wrapper_raises_instead_of_falling_back(cuda_device):
+    x = torch.zeros((1, 8, 8, 3), device=cuda_device)
+    w = torch.zeros((3, 3, 3, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="K in"):
+        sk.stem_conv_forward(x, torch.zeros((3, 3, 3, 12),
+                                            device=cuda_device))
+    with pytest.raises(TypeError, match="dtype"):
+        sk.stem_conv_forward(x.double(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.stem_conv_forward(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="is on cpu"):
+        sk.stem_conv_forward(x, w.cpu())
