@@ -11,11 +11,14 @@ Phases (any failure ends the run non-zero):
 1. device: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions; TF32 pinned off so f32 means f32.
 2. build: compiles the hand-written CUDA kernels from the checkout's
-   sources (one nvcc per source, in parallel).
+   sources (one nvcc per source, in parallel); prints ptxas's registers,
+   shared memory and spills per kernel.
 3. kernel: the fused conv+BN+activation kernel against its plain PyTorch
    version at every call-site shape of the full-width serving forward
    (batch 8, and 16 for flip TTA), f32 and the bf16 inputs the
-   ``eval_bf16`` flow gives it; max abs error and median times of both.
+   ``eval_bf16`` flow gives it; max abs error and median times of both;
+   then the f64 control per call-site shape at batch 1 (the kernel's error
+   against an f64 conv at most F64_RATIO times the plain f32 conv's).
 4. predict: ``python -m mcmda_tpu_torch predict`` at full width
    (configs/mri2ct.json, run.use_pallas=true) on a 64-slice 256x256 phantom
    from seeded random weights written in the JAX package's npz layout:
@@ -29,8 +32,8 @@ Phases (any failure ends the run non-zero):
    both flip states and an identity transform), and the conv + BN-moments
    kernel against its plain version at the 6 shapes of the 15 convs of a
    train step at batch 8 that take it (``train_call_sites``: z, the
-   moments, and the gradients of its autograd Function at 512->512 d4);
-   max abs errors and median times.
+   moments, the f64 control of z at batch 1, and the gradients of its
+   autograd Function at 512->512 d4); max abs errors and median times.
 6. train-source: ``python -m mcmda_tpu_torch train-source --synthetic`` at
    full width through the CLI (see TRAIN_RUNS): the kernel path with
    checkpoints, prune and val_dice firing; the shipped config; the plain
@@ -56,13 +59,18 @@ Phases (any failure ends the run non-zero):
    fused conv runs once per call site per forward batch, and the Dice /
    ASSD table is finite; ``predict`` serves the same selected checkpoint.
 
-Every kernel is timed beside its bound (the larger of the bytes it must
-move at 3.35 TB/s and its operations at the f32 CUDA-core rate of 67
-TFLOP/s: TF32 is off) and a PyTorch call computing the same or the core of
-the same function (``library_ms``).  The line before the last is a JSON
-object of kernel results; the last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
-and prints no result.
+Every kernel is timed beside its bound and a PyTorch call computing the
+same or the core of the same function (``library_ms``; for the convs
+cuDNN's f32 conv with TF32 off, of x widened to f32).  A bound is the
+larger of the bytes the kernel must move at 3.35 TB/s and its operations
+at the rate of the units that run them: the two conv kernels run split
+TF32 on the tensor cores, so each multiply-add counts as 3 TF32 products
+(2 where x is bf16) at 495 TFLOP/s, with the bound at the f32 CUDA-core
+rate of 67 TFLOP/s printed beside it; the warp and the stem run on the
+CUDA cores.  The line before the last is a JSON object of kernel results
+(the fused conv's also at batch 16); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or outside a checkout, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -86,8 +95,9 @@ SIZE = 256
 SEED = 0
 DEVICE = "cuda"
 SETS = ["run.use_pallas=true"]
-# kernel vs plain, both f32 with TF32 off; they differ only in the order of
-# up to 9*512 summed products
+# kernel vs plain: the plain convs run f32 with TF32 off, the conv kernels
+# split TF32 (f32-class: see F64_RATIO); they differ in the rounding and
+# the order of up to 9*512 summed products
 RTOL, ATOL = 1e-4, 1e-4
 # std of the random model's logits over the first batch (see _calibrate_head)
 LOGIT_SPREAD = 8.0
@@ -161,9 +171,17 @@ ADAPT_RUNS = (
 # H100).  The shipped run (warp kernel, plain convs) against the kernel run
 # isolates the conv + moments kernel and is held to STEP1_RTOL.
 ADAPT_BF16_STEP1_RTOL = 1e-2
-# H100 SXM peaks (NVIDIA's data sheet): device memory and f32 CUDA cores
+# H100 SXM peaks (NVIDIA's data sheet): device memory, f32 CUDA cores and
+# dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# the conv kernels run each f32 product as three TF32 tensor-core products
+# (split TF32, csrc/conv_tile.cuh), two when x is bf16 (exact in TF32)
+SPLIT_PRODUCTS = {"float32": 3, "bfloat16": 2}
+# f64 control: a conv kernel's max abs error against an f64 conv is at most
+# F64_RATIO times the plain f32 conv's (TF32 off)
+F64_RATIO = 4.0
 
 
 def fail(msg: str) -> None:
@@ -202,6 +220,26 @@ def call_sites(cfg, n: int, size: int):
     return sites
 
 
+def ptxas_report(log: str):
+    """(kernel, registers, spill-store bytes, static shared bytes) per
+    compiled kernel in ptxas's ``-v`` report; conv kernels are named by x
+    dtype and tile width, e.g. ``conv_bn_act_kernel<bf16,128>``."""
+    out = []
+    for m in re.finditer(
+            r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+            r"(\d+) bytes spill stores.*\n.*Used (\d+) registers(.*)", log):
+        mangled, spill, regs, rest = m.groups()
+        name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
+        tile = re.search(r"TileILi(\d+)E", mangled)
+        if tile:
+            dt = "bf16" if "bfloat16" in mangled else "f32"
+            name += f"<{dt},{tile.group(1)}>"
+        smem = re.search(r"(\d+) bytes smem", rest)
+        out.append((name, int(regs), int(spill),
+                    int(smem.group(1)) if smem else 0))
+    return out
+
+
 def gpu_time_ms(fn, torch) -> float:
     """Median of TIMED_RUNS runs after warmup, each timed with CUDA events
     between two synchronizations.  A spin kernel queued ahead of the first
@@ -224,11 +262,45 @@ def gpu_time_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
     """(least ms for the work, what bounds it): the bytes at the card's
-    memory rate against the operations at its f32 rate."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    memory rate against the operations at ``flops_per_s`` (by default its
+    f32 CUDA-core rate)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def conv_bounds(work):
+    """Bounds of a list of conv calls (bytes, flops, split products): the
+    split-TF32 tensor-core bound (each multiply-add as that many TF32
+    products at 495 TFLOP/s) and, for comparison with the f32 kernels of
+    earlier versions, the f32 CUDA-core bound; both as (ms, what bounds
+    it)."""
+    nbytes = sum(b for b, _, _ in work)
+    return (bound(nbytes, sum(f * p for _, f, p in work), TF32_FLOPS),
+            bound(nbytes, sum(f for _, f, _ in work)))
+
+
+def f64_control(torch, x, w, dilation, kernel, label):
+    """Max abs error of ``kernel(x, w, dilation)`` (a conv, no epilogue)
+    and of the plain f32 conv against an f64 conv; fails unless the
+    kernel's is within F64_RATIO of the plain one's."""
+    from mcmda_tpu_torch.ops import layers
+
+    exact = layers.conv_apply({"w": w}, x, dilation=dilation,
+                              compute_dtype=torch.float64)
+    got = kernel(x, w, dilation)
+    torch.cuda.synchronize()
+    err = (got.double() - exact).abs().max().item()
+    plain = (layers.conv_apply({"w": w}, x, dilation=dilation).double()
+             - exact).abs().max().item()
+    print(f"{label} f64 control x={list(x.shape)} {str(x.dtype)[6:]} "
+          f"k={w.shape[-1]} d={dilation}: kernel {err:.3e}, plain f32 "
+          f"{plain:.3e} (ratio {err / plain:.2f}, limit {F64_RATIO})",
+          flush=True)
+    if err > F64_RATIO * plain:
+        fail(f"{label}: kernel error vs f64 {err} > {F64_RATIO} x plain "
+             f"{plain} at x={tuple(x.shape)} k={w.shape[-1]} d={dilation}")
 
 
 def conv_work(xs, k, x_bytes, out_bytes, extra_bytes=0):
@@ -242,12 +314,13 @@ def conv_work(xs, k, x_bytes, out_bytes, extra_bytes=0):
 
 
 def library_conv(torch, x, w, dilation):
-    """cuDNN's conv of NHWC x (a channels-last view) with HWIO w in x's
-    dtype: the library call beside a conv kernel."""
+    """cuDNN's f32 conv (TF32 off) of NHWC x (a channels-last view, widened
+    to f32 beforehand where x is bf16, as the kernel computes in f32) with
+    HWIO w: the library call beside a conv kernel."""
     import torch.nn.functional as F
 
-    wl = w.to(x.dtype).permute(3, 2, 0, 1).contiguous()
-    xl = x.permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous()
+    xl = x.float().permute(0, 3, 1, 2)
     return lambda: F.conv2d(xl, wl, padding=dilation, dilation=dilation)
 
 
@@ -309,18 +382,40 @@ def phase_kernel(cfg, torch, fk):
               f"kernel {totals[n][0]:.3f} ms, plain {totals[n][1]:.3f} ms, "
               f"library conv {totals[n][2]:.3f} ms", flush=True)
     size = {"float32": 4, "bfloat16": 2}
-    work = [conv_work(xs, k, size[x_dt], 4,
-                      2 * k * 4 + (xs[0] * xs[1] * xs[2] * k * size[r_dt]
-                                   if r_dt else 0))
-            for _, xs, k, d, x_dt, r_dt in per_batch[BATCH]]
-    b_ms, b_by = bound(sum(b for b, _ in work), sum(f for _, f in work))
+    bounds = {}
+    for n, sites in per_batch.items():
+        work = [conv_work(xs, k, size[x_dt], 4,
+                          2 * k * 4 + (xs[0] * xs[1] * xs[2] * k * size[r_dt]
+                                       if r_dt else 0))
+                + (SPLIT_PRODUCTS[x_dt],)
+                for _, xs, k, d, x_dt, r_dt in sites]
+        bounds[n] = conv_bounds(work)
+        (b_ms, b_by), (f_ms, f_by) = bounds[n]
+        print(f"kernel: bound per forward batch of {n}: {b_ms:.4f} ms "
+              f"({b_by}, split TF32 at {TF32_FLOPS / 1e12:.0f} TFLOP/s); on "
+              f"the f32 CUDA cores {f_ms:.4f} ms ({f_by})", flush=True)
     print(f"kernel: {len(cases)} cases agree (rtol={RTOL}, atol={ATOL}), "
-          f"max abs err {worst:.3e}; bound per forward batch of {BATCH} "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+          f"max abs err {worst:.3e}", flush=True)
+    # f64 control at batch 1, per call-site shape and x dtype
+    one = {(xs[1:], k, d, x_dt) for _, xs, k, d, x_dt, _ in per_batch[BATCH]}
+    for hwc, k, d, x_dt in sorted(one):
+        c = hwc[-1]
+        x = torch.randn((1,) + hwc, device="cuda", generator=gen).to(
+            getattr(torch, x_dt))
+        w = torch.randn((3, 3, c, k), device="cuda", generator=gen) \
+            * math.sqrt(2.0 / (9 * c))
+        f64_control(torch, x, w, d, lambda a, b, dd: fk.conv_bn_act(
+            a, b, torch.ones(k, device="cuda"), torch.zeros(k, device="cuda"),
+            dilation=dd, activation="none"), "kernel")
+    (b_ms, b_by), (f_ms, _) = bounds[BATCH]
     return (len(per_batch[BATCH]),
             dict(max_abs_err=worst, ms=totals[BATCH][0],
                  plain_ms=totals[BATCH][1], bound_ms=b_ms, bound_by=b_by,
-                 library_ms=totals[BATCH][2]))
+                 library_ms=totals[BATCH][2], f32_core_bound_ms=f_ms,
+                 batch16_ms=totals[2 * BATCH][0],
+                 batch16_plain_ms=totals[2 * BATCH][1],
+                 batch16_library_ms=totals[2 * BATCH][2],
+                 batch16_bound_ms=bounds[2 * BATCH][0][0]))
 
 
 def _random_trees(cfg, rng, segmenter):
@@ -626,7 +721,7 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
     for xs, kk, d in sites:
         shapes[(xs, kk, d)] = shapes.get((xs, kk, d), 0) + 1
     worst, t_k_step, t_p_step, t_l_step = 0.0, 0.0, 0.0, 0.0
-    nbytes = flops = 0.0
+    work = []
     for (xs, kk, d), count in shapes.items():
         c = xs[-1]
         x = torch.randn(xs, device="cuda", generator=gen)
@@ -646,8 +741,7 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         t_p_step += count * t_p
         t_l_step += count * t_l
         b, f = conv_work(xs, kk, 4, 4, 2 * kk * 4)
-        nbytes += count * b
-        flops += count * f
+        work += [(b, f, SPLIT_PRODUCTS["float32"])] * count
         print(f"conv_stats x={list(xs)} k={kk} d={d} ({count} per step): "
               f"z max_abs_err={err:.3e}, sum rel {m1:.2e}, sumsq rel "
               f"{m2:.2e}; kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
@@ -657,13 +751,17 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         if max(m1, m2) > MOMENT_RTOL:
             fail(f"conv_stats moments disagree at x={xs} k={kk} d={d}: "
                  f"{m1}, {m2}")
+        f64_control(torch, x[:1].contiguous(), w, d,
+                    lambda a, b, dd: tk.conv_stats_forward(a, b, dd)[0],
+                    "conv_stats")
     if len(sites) != TRAIN_RUNS[0][4]:
         fail(f"{len(sites)} conv + moments sites per step, expected "
              f"{TRAIN_RUNS[0][4]}")
-    c_ms, c_by = bound(nbytes, flops)
+    (c_ms, c_by), (f_ms, f_by) = conv_bounds(work)
     print(f"conv_stats: {len(sites)} calls per train step: kernel "
           f"{t_k_step:.3f} ms, plain {t_p_step:.3f} ms, library conv "
-          f"{t_l_step:.3f} ms, bound {c_ms:.4f} ms ({c_by}) (forward)",
+          f"{t_l_step:.3f} ms, bound {c_ms:.4f} ms ({c_by}, split TF32) "
+          f"(forward); on the f32 CUDA cores {f_ms:.4f} ms ({f_by})",
           flush=True)
     # gradients of a scalar of (z, sum, sumsq) at 512 -> 512 d4
     xs, kk, d = (BATCH, SIZE // 8, SIZE // 8, 512), 512, 4
@@ -692,7 +790,7 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
                             bound_ms=b_ms, bound_by=b_by, library_ms=t_l),
         "conv_stats": dict(max_abs_err=worst, ms=t_k_step,
                            plain_ms=t_p_step, bound_ms=c_ms, bound_by=c_by,
-                           library_ms=t_l_step),
+                           library_ms=t_l_step, f32_core_bound_ms=f_ms),
     }
 
 
@@ -1180,10 +1278,21 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     with open(os.path.join(os.path.dirname(lib), "nvcc.log")) as f:
-        ptxas = [ln.split(":", 1)[1].strip() for ln in f if "Used" in ln]
+        report = ptxas_report(f.read())
+    ring = {(dt, k): build.load().mcmda_conv_smem_bytes(bf, 1 << 20, k)
+            for dt, bf in (("f32", 0), ("bf16", 1)) for k in (16, 32, 64, 128)}
     print(f"build: {os.path.relpath(lib, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas per instantiation: "
-          f"{' | '.join(ptxas)}", flush=True)
+          + " | ".join(f"{name} {regs} registers, {spill} B spilled, "
+                       f"{smem} B static shared" for name, regs, spill, smem
+                       in report)
+          + "; conv ring (dynamic shared memory) by x dtype and tile "
+          "width: " + ", ".join(f"{dt} {k}: {b} B" for (dt, k), b
+                                in ring.items()), flush=True)
+    spilled = [name for name, _, spill, _ in report
+               if spill and name.startswith("conv_")]
+    if spilled:
+        fail(f"conv kernels spill registers: {spilled}")
 
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
 

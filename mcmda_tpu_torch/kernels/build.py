@@ -100,6 +100,10 @@ def load() -> ctypes.CDLL:
         lib.mcmda_conv_stats.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                          p]
         lib.mcmda_conv_stats.restype = i
+        lib.mcmda_conv_smem_bytes.argtypes = [i, i, i]
+        lib.mcmda_conv_smem_bytes.restype = i
+        lib.mcmda_conv_stats_partial_tiles.argtypes = [i]
+        lib.mcmda_conv_stats_partial_tiles.restype = i
         lib.mcmda_warp_affine.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.mcmda_warp_affine.restype = i
         lib.mcmda_stem_conv.argtypes = [p, p, p, i, i, i, i, i, p]

@@ -9,19 +9,21 @@
 // z*z.  The normalize + residual + activation epilogue stays in plain
 // PyTorch (conv_bn_act_train), as the JAX package leaves it to XLA.
 //
-// What bounds it on an H100: the rm4-rm6 tail (32x32 planes, 128-512 input
-// channels, 256-512 output channels) is compute-bound, ~2*9*C FLOPs per
-// output element against a few bytes, and this first version runs f32 FMAs
-// on the CUDA cores (the card's f32 non-tensor-core rate is its ceiling).
-// The moments add one pass over the tile while it is still in registers,
-// so z is written once and never read back to reduce it.
+// What bounds it on an H100: the rm3-rm6 tail (32x32 planes, 128-512 input
+// channels, 128-512 output channels) is compute-bound, ~2*9*C FLOPs per
+// output element against a few bytes.  The conv runs in split TF32 on the
+// tensor cores (conv_tile.cuh: three TF32 products per f32 product), so its
+// ceiling is 495/3 = 165 TFLOP/s of f32-accurate work.  The moments add one
+// pass over the accumulator fragments while they are in registers, so z is
+// written once and never read back to reduce it.
 //
-// Design: the implicit GEMM of conv_tile.cuh (64-pixel x 64-channel tile per
-// block).  Epilogue: store z; each thread sums its 4 rows per channel; the
-// 16 row groups of the block are summed through shared memory in a fixed
-// order into one partial (sum, sum of squares) per pixel tile and channel,
-// written to a [m_tiles, 2, K] buffer.  A second small kernel sums the
-// partials of each channel over the pixel tiles, again in a fixed order.
+// Design: the implicit GEMM of conv_tile.cuh.  Epilogue: store z (float2
+// per pair of adjacent channels); then the moments in a fixed order at
+// every stage: each thread sums its rows per channel, warp shuffles combine
+// the 8 row groups of a fragment, shared memory combines the warps of the
+// block, and the block writes one partial (sum, sum of squares) per pixel
+// tile and channel to a [m_tiles, 2, K] buffer.  A second small kernel sums
+// the partials of each channel over the pixel tiles, again in a fixed order.
 // No float atomics: a seeded run repeats bit for bit.  The TPU kernel
 // instead carried the moments across its sequential batch grid in VMEM;
 // blocks here run in no order, hence the second pass.
@@ -32,56 +34,90 @@ namespace {
 
 using namespace conv_tile;
 
-constexpr int ROW_GROUPS = BM / TM;  // 16 threads share each channel column
 constexpr int REDUCE_THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS)
+template <class T>
+__global__ void __launch_bounds__(THREADS, 1)
 conv_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ z, float* __restrict__ partial,
                   int n_img, int h, int wd, int c, int k, int dil) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ float red_s[ROW_GROUPS][BN];
-  __shared__ float red_ss[ROW_GROUPS][BN];
+  using L = MainLoop<float, T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // after the ring: per-warp-row column sums, [WARPS_M][BN] twice
+  float* red_s = reinterpret_cast<float*>(smem + L::SMEM_BYTES);
+  float* red_ss = red_s + T::WARPS_M * T::BN;
 
   const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * T::BN;
   const int m_total = n_img * h * wd;
-  float acc[TM][TN];
-  mainloop(x, w, n_img, h, wd, c, k, dil, m0, n0, As, Bs, acc);
+  float acc[T::MT][T::NT][4];
+  L::run(x, w, n_img, h, wd, c, k, dil, m0, n0, smem, acc);
 
-  const int tid = threadIdx.x;
-  const int tm = thread_row(tid);
-  const int tn = thread_col(tid);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool pairs = k % 2 == 0;
   // store z; rows past m_total hold exact zeros and add nothing below
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + tm + i;
-    if (m >= m_total) continue;
+  for (int nt = 0; nt < T::NT; ++nt) {
+    const int col = n0 + L::frag_col(warp, lane, nt);
+    if (col >= k) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int kk = n0 + tn + j;
-      if (kk < k) z[static_cast<size_t>(m) * k + kk] = acc[i][j];
+    for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + L::frag_row(warp, lane, mt, half);
+        if (m >= m_total) continue;
+        const size_t o = static_cast<size_t>(m) * k + col;
+        const float y0 = acc[mt][nt][2 * half];
+        const float y1 = acc[mt][nt][2 * half + 1];
+        if (pairs) {
+          *reinterpret_cast<float2*>(z + o) = make_float2(y0, y1);
+        } else {
+          z[o] = y0;
+          if (col + 1 < k) z[o + 1] = y1;
+        }
+      }
     }
   }
+  // moments: this thread's rows (m-tiles, then g / g+8), then the 8 row
+  // groups g of the warp by xor shuffles (lane = 4g + t; IEEE addition is
+  // commutative, so every lane of a butterfly gets the same bits)
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float s = 0.f, ss = 0.f;
+  for (int nt = 0; nt < T::NT; ++nt) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      s += acc[i][j];
-      ss = fmaf(acc[i][j], acc[i][j], ss);
+    for (int j = 0; j < 2; ++j) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < T::MT; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float v = acc[mt][nt][2 * half + j];
+          s += v;
+          ss = fmaf(v, v, ss);
+        }
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      }
+      if (lane < 4) {
+        const int wm = warp / T::WARPS_N;
+        const int col = L::frag_col(warp, lane, nt) + j;
+        red_s[wm * T::BN + col] = s;
+        red_ss[wm * T::BN + col] = ss;
+      }
     }
-    red_s[tm / TM][tn + j] = s;
-    red_ss[tm / TM][tn + j] = ss;
   }
   __syncthreads();
-  if (tid < BN && n0 + tid < k) {
+  // the warp rows of the block, in order: one partial per channel
+  const int tid = threadIdx.x;
+  if (tid < T::BN && n0 + tid < k) {
     float s = 0.f, ss = 0.f;
 #pragma unroll
-    for (int g = 0; g < ROW_GROUPS; ++g) {
-      s += red_s[g][tid];
-      ss += red_ss[g][tid];
+    for (int wm = 0; wm < T::WARPS_M; ++wm) {
+      s += red_s[wm * T::BN + tid];
+      ss += red_ss[wm * T::BN + tid];
     }
     const size_t row = static_cast<size_t>(blockIdx.x) * 2;
     partial[row * k + n0 + tid] = s;
@@ -106,28 +142,57 @@ reduce_partials_kernel(const float* __restrict__ partial,
   ss_out[kk] = ss;
 }
 
+template <class T>
+cudaError_t launch(const void* x, const void* w, void* z, void* partial,
+                   int n, int h, int wd, int c, int k, int dil,
+                   cudaStream_t stream) {
+  auto kernel = conv_stats_kernel<T>;
+  const size_t smem =
+      MainLoop<float, T>::SMEM_BYTES + 2 * sizeof(float) * T::WARPS_M * T::BN;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(m_tiles(n * h * wd), (k + T::BN - 1) / T::BN);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(z), static_cast<float*>(partial), n, h, wd, c, k,
+      dil);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// The number of pixel tiles, i.e. the rows of the `partial` scratch that
+// mcmda_conv_stats needs for an output of m = n*h*wd pixels.
+extern "C" int mcmda_conv_stats_partial_tiles(int m) { return m_tiles(m); }
+
 // Plain C entry point (bound with ctypes).  x [n,h,wd,c] f32, w [3,3,c,k]
-// f32; writes z [n,h,wd,k], the scratch `partial` [ceil(n*h*wd/64), 2, k]
-// and s, ss [k], all f32.  Launches both kernels on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// f32; writes z [n,h,wd,k], the scratch `partial`
+// [mcmda_conv_stats_partial_tiles(n*h*wd), 2, k] and s, ss [k], all f32.
+// Launches both kernels on `stream` without synchronising and returns the
+// first CUDA error (0 on success).
 extern "C" int mcmda_conv_stats(const void* x, const void* w, void* z,
                                 void* partial, void* s, void* ss, int n,
                                 int h, int wd, int c, int k, int dil,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int m_tiles = (n * h * wd + BM - 1) / BM;
-  const dim3 grid(m_tiles, (k + BN - 1) / BN);
-  conv_stats_kernel<<<grid, THREADS, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(z), static_cast<float*>(partial), n, h, wd, c, k,
-      dil);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  switch (pick_tile(n * h * wd, k)) {
+    case kTile16:
+      err = launch<Tile16>(x, w, z, partial, n, h, wd, c, k, dil, st);
+      break;
+    case kTile32:
+      err = launch<Tile32>(x, w, z, partial, n, h, wd, c, k, dil, st);
+      break;
+    case kTile64:
+      err = launch<Tile64>(x, w, z, partial, n, h, wd, c, k, dil, st);
+      break;
+    default:
+      err = launch<Tile128>(x, w, z, partial, n, h, wd, c, k, dil, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials_kernel<<<(k + REDUCE_THREADS - 1) / REDUCE_THREADS,
                            REDUCE_THREADS, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(s),
-      static_cast<float*>(ss), m_tiles, k);
+      static_cast<float*>(ss), m_tiles(n * h * wd), k);
   return static_cast<int>(cudaGetLastError());
 }

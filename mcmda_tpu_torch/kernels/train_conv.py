@@ -58,7 +58,9 @@ def conv_stats_forward(x, w, dilation: int = 1):
     if n * h * wd >= 2 ** 31:
         raise ValueError("conv_stats: N*H*W must fit a 32-bit int")
 
-    m_tiles = -(-(n * h * wd) // 64)
+    # the partials' rows are the kernel's pixel tiles: ask the library, so
+    # that this sizing and the tile cannot drift apart
+    m_tiles = build.load().mcmda_conv_stats_partial_tiles(n * h * wd)
     z = torch.empty((n, h, wd, k), dtype=torch.float32, device=x.device)
     partial = torch.empty((m_tiles, 2, k), dtype=torch.float32,
                           device=x.device)

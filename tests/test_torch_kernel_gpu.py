@@ -6,8 +6,9 @@ skips without one.  On a GPU machine without jax::
 
     python -m pytest --noconftest tests/test_torch_kernel_gpu.py -q
 
-Tolerances: the convs rtol = atol = 1e-4 (both sides f32 with TF32 off;
-only the order of the summed products differs); the warp atol 1e-5 (its
+Tolerances: the convs rtol = atol = 1e-4 (the plain side f32 with TF32
+off, the kernels split TF32, which keeps f32-class accuracy: their error
+against an f64 conv is held to 4x the plain f32 conv's); the warp atol 1e-5 (its
 sampling coordinates are bitwise the plain version's; only the f32 blend
 rounds differently); the thin stem's gradients within 1e-4 of the largest.
 """
@@ -64,6 +65,71 @@ def test_kernel_matches_plain(cuda_device, c, k, dilation, dtype,
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+# The split-TF32 tiles' edges: M = 3*17*19 = 969 is not a multiple of the
+# 128-pixel tile; C = 40 / 48 are not multiples of the 32-deep step; C = 3
+# and 5 take the narrow (flattened-reduction) gather, K = 70 the narrow
+# weight loads; K = 16 / 32 / 64 / 70 pick each channel-width tile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(3, 16), (40, 32), (48, 64), (40, 70),
+                                 (5, 16)])
+def test_kernel_tile_edges_match_plain(cuda_device, c, k):
+    x, w, s, b, r = _inputs(13, 3, 17, 19, c, k, cuda_device)
+    kw = dict(dilation=2, activation="relu", residual=r)
+    got = fk.conv_bn_act(x, w, s, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fk.conv_bn_act_reference(x, w, s, b, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation", [1, 2, 4])
+@pytest.mark.parametrize("x_dtype,r_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, None)])
+def test_kernel_dtype_pairs_match_plain(cuda_device, x_dtype, r_dtype,
+                                        dilation):
+    # C = 48: 16-byte chunks for both x dtypes, and a ragged second step
+    x, w, s, b, r = _inputs(14, 2, 20, 21, 48, 64, cuda_device)
+    x = x.to(x_dtype)
+    r = None if r_dtype is None else r.to(r_dtype)
+    kw = dict(dilation=dilation, activation="leaky_relu", residual=r)
+    got = fk.conv_bn_act(x, w, s, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fk.conv_bn_act_reference(x, w, s, b, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _f64_errors(x, w, dilation, kernel):
+    """Max |kernel - f64 conv| and max |plain f32 - f64 conv|."""
+    from mcmda_tpu_torch.ops import layers
+
+    exact = layers.conv_apply({"w": w}, x, dilation=dilation,
+                              compute_dtype=torch.float64)
+    plain = layers.conv_apply({"w": w}, x, dilation=dilation)
+    got = kernel(x, w, dilation)
+    torch.cuda.synchronize()
+    return ((got.double() - exact).abs().max().item(),
+            (plain.double() - exact).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,k,dilation", [(8, 32, 512, 512, 4),
+                                               (8, 256, 3, 16, 1)])
+def test_split_tf32_f64_control(cuda_device, n, hw, c, k, dilation):
+    """Split TF32 keeps f32-class accuracy: both kernels' error against an
+    f64 conv is at most 4x the plain f32 conv's (TF32 off)."""
+    x, w = _inputs(15, n, hw, hw, c, k, cuda_device)[:2]
+    one = torch.ones(k, device=cuda_device)
+    zero = torch.zeros(k, device=cuda_device)
+    for kernel in (
+            lambda a, b, d: fk.conv_bn_act(a, b, one, zero, dilation=d,
+                                           activation="none"),
+            lambda a, b, d: tk.conv_stats_forward(a, b, d)[0]):
+        err, plain_err = _f64_errors(x, w, dilation, kernel)
+        assert err <= 4 * plain_err, (err, plain_err)
+
+
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     x, w, s, b, r = _inputs(1, 1, 8, 8, 4, 8, cuda_device)
@@ -98,10 +164,15 @@ def test_fused_forward_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,k,dilation", [(128, 256, 2), (512, 512, 4),
-                                          (5, 70, 1)])
-def test_conv_stats_kernel_matches_plain(cuda_device, c, k, dilation):
-    x, w = _inputs(3, 3, 17, 19, c, k, cuda_device)[:2]
+@pytest.mark.parametrize("n,h,w,c,k,dilation", [
+    (3, 17, 19, 128, 256, 2), (3, 17, 19, 512, 512, 4), (3, 17, 19, 5, 70, 1),
+    (3, 17, 19, 40, 16, 1), (3, 17, 19, 48, 32, 2), (3, 17, 19, 128, 64, 4),
+    # the train path's 128 -> 128 (64-wide tiles) and 512 -> 512 (128-wide
+    # tiles) at its 8 x 32 x 32 pixels
+    (8, 32, 32, 128, 128, 1), (8, 32, 32, 512, 512, 4)])
+def test_conv_stats_kernel_matches_plain(cuda_device, n, h, w, c, k,
+                                         dilation):
+    x, w = _inputs(3, n, h, w, c, k, cuda_device)[:2]
     before = tk.LAUNCHES
     z, s, ss = tk.conv_stats_forward(x, w, dilation)
     torch.cuda.synchronize()
