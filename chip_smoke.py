@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port's serving and source-training paths on one
-NVIDIA GPU.
+"""Smoke test of the PyTorch port's serving, training and adaptation paths
+on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -12,7 +12,7 @@ Phases (any failure ends the run non-zero):
    versions; TF32 pinned off so f32 means f32.
 2. build: compiles the hand-written CUDA kernels from the checkout's
    sources (one nvcc per source, in parallel); prints ptxas's registers,
-   shared memory and spills per kernel.
+   shared memory and spills per kernel instantiation; no kernel may spill.
 3. kernel: the fused conv+BN+activation kernel against its plain PyTorch
    version at every call-site shape of the full-width serving forward
    (batch 8, and 16 for flip TTA), f32 and the bf16 inputs the
@@ -28,12 +28,16 @@ Phases (any failure ends the run non-zero):
    match the same run on the kernel's plain version on the card (see
    RUNS); times both paths.
 5. train kernels: the augmentation warp kernel against its plain version
-   (batch 8, 256x256, 3 image + 5 label channels and 3 image channels;
-   both flip states and an identity transform), and the conv + BN-moments
-   kernel against its plain version at the 6 shapes of the 15 convs of a
+   (batch 8, 256x256, 3 image + 5 label channels and 3 image channels, and
+   adapt's batch 16; both flip states and an identity transform): image
+   channels bitwise equal, labels within WARP_ATOL, two calls bitwise
+   equal; a small shape that takes its generic kernel; and the conv +
+   BN-moments kernel against its plain version at the 6 shapes of the 15
+   convs of a
    train step at batch 8 that take it (``train_call_sites``: z, the
    moments, the f64 control of z at batch 1, and the gradients of its
-   autograd Function at 512->512 d4); max abs errors and median times.
+   autograd Function at 512->512 d4); max abs errors and median times (the
+   warp's both on one buffer and out of the L2).
 6. train-source: ``python -m mcmda_tpu_torch train-source --synthetic`` at
    full width through the CLI (see TRAIN_RUNS): the kernel path with
    checkpoints, prune and val_dice firing; the shipped config; the plain
@@ -44,13 +48,15 @@ Phases (any failure ends the run non-zero):
 7. thin stem: ``thin_conv.stem_apply_cf`` in train mode at [8,256,256,3]
    -> 16 through the stem kernel (forward, dw, BN, ReLU) against the plain
    conv under autograd: y, dw, dx (None by default, and with input_grad);
-   times the kernel, the plain version and cuDNN's conv.
+   times the kernel (on one buffer and out of the L2), the plain version
+   and cuDNN's conv; then launches on two streams with different weights,
+   and a width that is no multiple of 4.
 8. adapt: ``python -m mcmda_tpu_torch adapt --synthetic`` at full width
    from phase 6's kernel run (see ADAPT_RUNS): the kernel path for 30 steps
    with checkpoints, snapshots and class-ratio selection; two 5-step
    kernel runs (bitwise equal losses); the shipped config; the plain path;
    one step each of the kernel and the plain path with f32 source features
-   (step-1 losses of each kernel/plain pair, see ADAPT_BF16_STEP1_RTOL).
+   (step-1 losses of each kernel/plain pair within STEP1_RTOL).
    Checks the launches per step, finite losses, selection.json, the
    materialized selected checkpoint and the snapshot PNGs; times
    ``make_adapt_step`` on both paths.
@@ -67,10 +73,14 @@ at the rate of the units that run them: the two conv kernels run split
 TF32 on the tensor cores, so each multiply-add counts as 3 TF32 products
 (2 where x is bf16) at 495 TFLOP/s, with the bound at the f32 CUDA-core
 rate of 67 TFLOP/s printed beside it; the warp and the stem run on the
-CUDA cores.  The line before the last is a JSON object of kernel results
-(the fused conv's also at batch 16); the last line is ``{"ok": true,
-"device": {...}}``.  Without a CUDA device, or outside a checkout, it
-exits non-zero and prints no result.
+CUDA cores.  The warp's and the stem's whole working set (34-40 MB) fits
+the card's 50 MB L2, so 20 calls on one buffer may be served by it: their
+``ms`` (and ``library_ms``) rotate over COLD_SETS distinct buffers and are
+what the bound is compared with; ``one_buffer_ms`` is the timing of earlier
+versions of this script.  The line before the last is a JSON object of
+kernel results (the fused conv's also at batch 16); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -117,11 +127,15 @@ RUNS = (
 )
 EXACT_SLACK = 0.001
 TIMED_RUNS = 20
+# distinct input / output buffers a small kernel's cold timing rotates over
+# (each set is 34-50 MB at the warp's and the stem's shapes; the L2 is 50)
+COLD_SETS = 6
 # about 2.5 ms of the card's clock: longer than the host takes to enqueue
 # one timed call
 SPIN_CYCLES = 5_000_000
-# phase 5: the warp computes its coordinates bitwise like the plain version,
-# so only the f32 blend's rounding differs
+# phase 5: the warp computes its coordinates and its blend bitwise like the
+# plain version (the image channels are held to torch.equal); only the order
+# of the label sum, and so the renormalised labels' last bits, may differ
 WARP_ATOL = 1e-5
 # conv + moments: z as the fused conv (RTOL, ATOL); each channel's sum and
 # sum of squares within MOMENT_RTOL of sum|z| and sum z^2 (the summation
@@ -163,14 +177,15 @@ ADAPT_RUNS = (
     ("plain-f32", ["data.warp=xla", "segmenter.train_fused=none", F32_SRC],
      1, 0, 0),
 )
-# step-1 losses of the kernel path against the plain path: with f32 source
-# features within STEP1_RTOL; in the shipped bf16 source forward the warp
-# kernel's last-bit blend differences (<= 1e-5, phase 5) flip bf16
-# roundings that the network carries to the critic's input, so the bf16
-# pair is held to ADAPT_BF16_STEP1_RTOL (1.7e-3 on d_loss measured on an
-# H100).  The shipped run (warp kernel, plain convs) against the kernel run
-# isolates the conv + moments kernel and is held to STEP1_RTOL.
-ADAPT_BF16_STEP1_RTOL = 1e-2
+# step-1 losses of the kernel path against the plain path are held to
+# STEP1_RTOL with f32 source features and in the shipped bf16 source
+# forward alike: the warp kernel's image channels are bitwise its plain
+# version's, so what is left between the two paths is the flip folded into
+# the warp's coefficients (an ulp of the sampling coordinates of flipped
+# images against flip-then-warp) and the conv + moments kernel's summation
+# order (2.0e-4 on d_loss in bf16 measured on an H100).  The shipped run
+# (warp kernel, plain convs) against the kernel run isolates the conv +
+# moments kernel.
 # H100 SXM peaks (NVIDIA's data sheet): device memory, f32 CUDA cores and
 # dense TF32 tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -223,7 +238,9 @@ def call_sites(cfg, n: int, size: int):
 def ptxas_report(log: str):
     """(kernel, registers, spill-store bytes, static shared bytes) per
     compiled kernel in ptxas's ``-v`` report; conv kernels are named by x
-    dtype and tile width, e.g. ``conv_bn_act_kernel<bf16,128>``."""
+    dtype and tile width, e.g. ``conv_bn_act_kernel<bf16,128>``, the warp
+    and stem kernels by their integer template arguments, e.g.
+    ``stem_conv_kernel<16,3,1>`` (K, C, x read 16 bytes at a time)."""
     out = []
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
@@ -231,9 +248,13 @@ def ptxas_report(log: str):
         mangled, spill, regs, rest = m.groups()
         name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
         tile = re.search(r"TileILi(\d+)E", mangled)
+        args = re.search(name + r"I((?:L[ib]\d+E)+)E", mangled)
         if tile:
             dt = "bf16" if "bfloat16" in mangled else "f32"
             name += f"<{dt},{tile.group(1)}>"
+        elif args:
+            name += "<" + ",".join(re.findall(r"L[ib](\d+)E",
+                                              args.group(1))) + ">"
         smem = re.search(r"(\d+) bytes smem", rest)
         out.append((name, int(regs), int(spill),
                     int(smem.group(1)) if smem else 0))
@@ -260,6 +281,24 @@ def gpu_time_ms(fn, torch) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def gpu_time_cold_ms(fn, sets, torch) -> float:
+    """As ``gpu_time_ms``, out of the L2: call i runs ``fn(*sets[i %
+    len(sets)])`` and its result is kept until ``len(sets)`` later calls
+    have made theirs, so inputs and outputs rotate over distinct buffers
+    that together exceed the card's 50 MB L2 several times.  20 calls on
+    one buffer of a few tens of MB can read it from the L2 and come in
+    under a bound computed from the device memory's rate."""
+    ring = [None] * len(sets)
+    i = 0
+
+    def call():
+        nonlocal i
+        ring[i % len(sets)] = fn(*sets[i % len(sets)])
+        i += 1
+
+    return gpu_time_ms(call, torch)
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
@@ -692,21 +731,39 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         err = (got - ref).abs().max().item()
         if not torch.isfinite(got).all() or got.shape != ref.shape:
             fail(f"warp {name}: output not finite or shape {got.shape}")
+        if not torch.equal(got[..., :3], ref[..., :3]):
+            fail(f"warp {name}: image channels not bitwise the plain "
+                 f"version's ({(got[..., :3] != ref[..., :3]).sum().item()} "
+                 "values differ)")
+        if not torch.equal(got, wk.warp_affine(packed, cf, n_image=3)):
+            fail(f"warp {name}: two calls on the same inputs differ")
+        lib = library_warp(torch, wk, cf)
+        sets = [(packed.clone(),) for _ in range(COLD_SETS)]
         t_k = gpu_time_ms(lambda: wk.warp_affine(packed, cf, n_image=3),
                           torch)
+        t_kc = gpu_time_cold_ms(
+            lambda p: wk.warp_affine(p, cf, n_image=3), sets, torch)
         t_p = gpu_time_ms(
             lambda: wk.warp_affine_reference(packed, cf, n_image=3), torch)
-        t_l = gpu_time_ms(library_warp(torch, wk, packed, cf), torch)
+        t_l = gpu_time_ms(lambda: lib(packed), torch)
+        t_lc = gpu_time_cold_ms(lib, sets, torch)
+        del sets
         c = packed.shape[-1]
         px = packed.shape[0] * SIZE * SIZE
-        # coordinates 8 ops and corner weights 7 per pixel, the blend 7
+        # coordinates 8 ops and corner weights 8 per pixel, the blend 7
         # per channel, the label renormalisation 2 per label channel
         b_ms, b_by = bound(2 * px * c * 4 + cf.numel() * 4,
-                           px * (15 + 7 * c + 2 * (c - 3)))
-        warp[name] = (err, t_k, t_p, t_l, b_ms, b_by)
-        print(f"warp {name} x={list(packed.shape)}: max_abs_err={err:.3e} "
-              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} grid_sample_ms="
-              f"{t_l:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                           px * (16 + 7 * c + 2 * (c - 3)))
+        warp[name] = dict(max_abs_err=err, ms=t_kc, one_buffer_ms=t_k,
+                          plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=t_lc, library_one_buffer_ms=t_l)
+        print(f"warp {name} x={list(packed.shape)}: max_abs_err={err:.3e}, "
+              f"image channels bitwise equal; kernel_ms={t_kc:.4f} out of "
+              f"L2 ({t_k:.4f} on one buffer) plain_ms={t_p:.4f} "
+              f"grid_sample_ms={t_lc:.4f} ({t_l:.4f}) bound_ms={b_ms:.4f} "
+              f"({b_by})"
+              + ("; the one-buffer time is under the bound: the L2's, not "
+                 "device memory's" if t_k < b_ms else ""), flush=True)
         if err > WARP_ATOL:
             fail(f"warp {name}: max abs err {err} > {WARP_ATOL}")
     # identity image: the input itself (labels renormalised one-hots)
@@ -715,6 +772,19 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
     if not (torch.equal(same[-1], torch.cat([image, label], -1)[-1])
             and torch.equal(same2[-1], image2[-1])):
         fail("warp: the identity transform does not return its input")
+    # a shape that takes the generic kernel (run-time C, ragged tiles)
+    gh, gw, gc, gn = 37, 41, 5, 2
+    g_coefs = wk.affine_coefs(*draws[:2, 1:].unbind(-1), draws[:2, 0], gh, gw)
+    g_x = torch.rand((2, gh, gw, gc), device="cuda", generator=gen)
+    g_got = wk.warp_affine(g_x, g_coefs, n_image=gn)
+    torch.cuda.synchronize()
+    g_ref = wk.warp_affine_reference(g_x, g_coefs, n_image=gn)
+    g_err = (g_got - g_ref).abs().max().item()
+    print(f"warp generic x={list(g_x.shape)} n_image={gn}: max_abs_err="
+          f"{g_err:.3e}", flush=True)
+    if g_err > WARP_ATOL or not torch.equal(g_got[..., :gn], g_ref[..., :gn]):
+        fail(f"warp generic: max abs err {g_err} > {WARP_ATOL}, or image "
+             "channels not bitwise the plain version's")
 
     sites = train_call_sites(cfg.segmenter, BATCH, SIZE)
     shapes = {}
@@ -783,19 +853,20 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
           f"{rel[0]:.2e}, dw rel {rel[1]:.2e}", flush=True)
     if max(rel) > GRAD_RTOL:
         fail(f"conv_stats gradients disagree: {rel}")
-    w_err = max(v[0] for v in warp.values())
-    _, t_k, t_p, t_l, b_ms, b_by = warp["image+label"]
+    w_err = max(max(v["max_abs_err"] for v in warp.values()), g_err)
     return {
-        "warp_affine": dict(max_abs_err=w_err, ms=t_k, plain_ms=t_p,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=t_l),
+        "warp_affine": {**warp["image+label"], "max_abs_err": w_err,
+                        **{f"adapt_{k}": v for k, v
+                           in warp["adapt image"].items()
+                           if k.endswith("ms")}},
         "conv_stats": dict(max_abs_err=worst, ms=t_k_step,
                            plain_ms=t_p_step, bound_ms=c_ms, bound_by=c_by,
                            library_ms=t_l_step, f32_core_bound_ms=f_ms),
     }
 
 
-def library_warp(torch, wk, packed, coefs):
-    """``F.grid_sample`` (bilinear, zeros outside) of the packed batch at
+def library_warp(torch, wk, coefs):
+    """``F.grid_sample`` (bilinear, zeros outside) of a packed batch at
     the warp's sampling coordinates, normalised for align_corners=True:
     the library call beside the warp.  It leaves out the label
     renormalisation, and the flip is already folded into the coordinates;
@@ -806,9 +877,9 @@ def library_warp(torch, wk, packed, coefs):
     ys, xs = wk.sample_coords(coefs, SIZE, SIZE)
     grid = torch.stack([xs / (SIZE - 1) * 2 - 1, ys / (SIZE - 1) * 2 - 1],
                        -1)
-    xl = packed.permute(0, 3, 1, 2)
-    return lambda: F.grid_sample(xl, grid, mode="bilinear",
-                                 padding_mode="zeros", align_corners=True)
+    return lambda packed: F.grid_sample(
+        packed.permute(0, 3, 1, 2), grid, mode="bilinear",
+        padding_mode="zeros", align_corners=True)
 
 
 def _losses(out_dir):
@@ -1035,23 +1106,63 @@ def phase_stem(torch, sk):
           and all(torch.allclose(new_bn[s_], rbn[s_], rtol=RTOL, atol=ATOL)
                   for s_ in ("mean", "var")))
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+    def lib(xx):
+        return F.conv2d(xx.permute(0, 3, 1, 2), w_oihw, padding=1)
+
+    sets = [(x.clone(),) for _ in range(COLD_SETS)]
     t_k = gpu_time_ms(lambda: sk.stem_conv_forward(x, w), torch)
+    t_kc = gpu_time_cold_ms(lambda xx: sk.stem_conv_forward(xx, w), sets,
+                            torch)
     t_p = gpu_time_ms(lambda: sk.stem_conv_nhwc_reference(x, w), torch)
-    xl = x.permute(0, 3, 1, 2)
-    t_l = gpu_time_ms(lambda: F.conv2d(xl, w_oihw, padding=1), torch)
+    t_l = gpu_time_ms(lambda: lib(x), torch)
+    t_lc = gpu_time_cold_ms(lib, sets, torch)
+    del sets
     b_ms, b_by = bound(*conv_work(shape, k, 4, 4))
     print(f"thin stem x={list(shape)} k={k}: y max_abs_err={err:.3e}, dw "
           f"rel {dw_rel:.2e}, dx {'None' if dx is None else 'computed'} by "
-          f"default, with input_grad rel {dx_rel:.2e}; kernel_ms={t_k:.4f} "
-          f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.4f} "
-          f"({b_by}); launches {launches}", flush=True)
+          f"default, with input_grad rel {dx_rel:.2e}; kernel_ms={t_kc:.4f} "
+          f"out of L2 ({t_k:.4f} on one buffer) plain_ms={t_p:.4f} "
+          f"library_ms={t_lc:.4f} ({t_l:.4f}) bound_ms={b_ms:.4f} "
+          f"({b_by}); launches {launches}"
+          + ("; the one-buffer time is under the bound: the L2's, not "
+             "device memory's" if t_k < b_ms else ""), flush=True)
     if not ok:
         fail(f"thin stem disagrees with plain: y max abs err {err}")
     if dx is not None or max(dw_rel, dx_rel) > GRAD_RTOL:
         fail(f"thin stem gradients: dx {dx is not None}, dw rel {dw_rel}, "
              f"dx rel {dx_rel}")
-    return dict(launches=launches, max_abs_err=err, ms=t_k, plain_ms=t_p,
-                bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+    # launches on two streams, each with its own weights, share no state:
+    # every result is its own plain version's
+    w2 = torch.randn(w.shape, device=DEVICE, generator=gen) * 0.5
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st_ in streams:
+        st_.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for st_, wt in zip(streams, (w, w2)):
+            with torch.cuda.stream(st_):
+                outs.append((wt, sk.stem_conv_forward(x, wt)))
+    torch.cuda.synchronize()
+    for wt, got in outs:
+        if not torch.allclose(got, sk.stem_conv_nhwc_reference(x, wt),
+                              rtol=RTOL, atol=ATOL):
+            fail("thin stem: launches on two streams disturbed each other")
+    # a width that is no multiple of 4 (the last thread of a row stores
+    # fewer pixels, one by one) at ragged blocks
+    xt = torch.randn((2, 37, 41, 3), device=DEVICE, generator=gen)
+    yt = sk.stem_conv_forward(xt, w)
+    torch.cuda.synchronize()
+    t_err = (yt - sk.stem_conv_nhwc_reference(xt, w)).abs().max().item()
+    print(f"thin stem: {len(outs)} launches on two streams each agree with "
+          f"plain; x={list(xt.shape)} (W % 4 != 0) max_abs_err={t_err:.3e}",
+          flush=True)
+    if not torch.allclose(yt, sk.stem_conv_nhwc_reference(xt, w), rtol=RTOL,
+                          atol=ATOL):
+        fail(f"thin stem at W % 4 != 0: max abs err {t_err}")
+    return dict(launches=launches, max_abs_err=max(err, t_err), ms=t_kc,
+                one_buffer_ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_lc, library_one_buffer_ms=t_l)
 
 
 def _adapt_metrics(out_dir):
@@ -1123,7 +1234,7 @@ def phase_adapt(torch, wk, tk, tmp, source_dir):
     if a["d_loss"] != b["d_loss"] or a["g_loss"] != b["g_loss"]:
         fail(f"seeded adapt runs differ: {a} vs {b}")
     for kern, plain, tol in (("kernel-f32", "plain-f32", STEP1_RTOL),
-                             ("kernel-5a", "plain", ADAPT_BF16_STEP1_RTOL),
+                             ("kernel-5a", "plain", STEP1_RTOL),
                              ("kernel-5a", "shipped", STEP1_RTOL)):
         k_m, p_m = runs[kern], runs[plain]
         rel = {k: abs(p_m[k][0] - k_m[k][0]) / abs(k_m[k][0])
@@ -1289,10 +1400,9 @@ def main() -> int:
           + "; conv ring (dynamic shared memory) by x dtype and tile "
           "width: " + ", ".join(f"{dt} {k}: {b} B" for (dt, k), b
                                 in ring.items()), flush=True)
-    spilled = [name for name, _, spill, _ in report
-               if spill and name.startswith("conv_")]
+    spilled = [name for name, _, spill, _ in report if spill]
     if spilled:
-        fail(f"conv kernels spill registers: {spilled}")
+        fail(f"kernels spill registers: {spilled}")
 
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
 

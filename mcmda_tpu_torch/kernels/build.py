@@ -87,28 +87,31 @@ def build() -> Path:
     return out
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the library's entry points (undeclared,
+    ctypes would pass pointers as 32-bit ints)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "mcmda_conv_bn_act": [p, i, p, p, p, p, i, p, i, i, i, i, i, i, i, p],
+        "mcmda_conv_smem_bytes": [i, i, i],
+        "mcmda_conv_stats": [p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "mcmda_conv_stats_partial_tiles": [i],
+        "mcmda_warp_affine": [p, p, p, i, i, i, i, i, p],
+        "mcmda_stem_conv": [p, p, p, i, i, i, i, i, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with the C
     signatures declared."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mcmda_conv_bn_act.argtypes = [p, i, p, p, p, p, i, p,
-                                          i, i, i, i, i, i, i, p]
-        lib.mcmda_conv_bn_act.restype = i
-        lib.mcmda_conv_stats.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         p]
-        lib.mcmda_conv_stats.restype = i
-        lib.mcmda_conv_smem_bytes.argtypes = [i, i, i]
-        lib.mcmda_conv_smem_bytes.restype = i
-        lib.mcmda_conv_stats_partial_tiles.argtypes = [i]
-        lib.mcmda_conv_stats_partial_tiles.restype = i
-        lib.mcmda_warp_affine.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.mcmda_warp_affine.restype = i
-        lib.mcmda_stem_conv.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.mcmda_stem_conv.restype = i
-        _lib = lib
+        _lib = declare(ctypes.CDLL(str(build())))
     return _lib
 
 

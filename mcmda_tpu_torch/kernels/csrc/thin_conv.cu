@@ -8,93 +8,211 @@
 // w [3,3,C,K] f32 (HWIO), y [N,K,H,W] f32.  The weight gradient and the
 // BN + ReLU around it are plain PyTorch (the JAX package leaves them to XLA).
 //
-// What bounds it on an H100: memory.  At the main shape (N=8, 256x256,
-// C=3, K=16) it reads 6.3 MB and writes 33.6 MB, ~12 us at 3.35 TB/s, for
-// 0.45 GFLOP, ~7 us at the 67 TFLOP/s f32 rate; writing the output is most
-// of the work.
+// What bounds it on an H100: memory, with the load / store unit and the
+// CUDA cores close behind.  At the main shape (N=8, 256x256, C=3, K=16) it
+// reads 6.3 MB and writes 33.6 MB, ~12 us at 3.35 TB/s, for 0.45 GFLOP, ~7
+// us at the 67 TFLOP/s f32 rate: writing the output is most of the work,
+// every instruction that is not an FMA takes a scheduler slot from one, and
+// every load of x that touches many cache lines takes the load / store
+// unit's time from the stores.
 //
-// Design: one thread per output pixel.  The TPU kernel ran 27*K
-// scalar-by-plane FMAs so that W filled its vector lanes; here a thread
-// reads its 3x3xC neighbourhood straight from NHWC (SAME padding as a
-// bounds test, no padded copy), keeps the K accumulators in registers and
-// writes its K channel planes, neighbouring threads on neighbouring w, so
-// every store of a warp is one coalesced 128-byte line.  The weights
-// (C*9*K floats, copied in on the launch's stream) sit in constant memory:
-// every thread of a warp reads the same weight at the same time, which the
-// constant cache broadcasts, and with C a template argument (3, the stem)
-// the loops unroll so that each FMA takes its weight as a constant-bank
-// operand, with no load instruction (from shared memory every FMA would
-// need a load of its own).  Products are summed in the order (dy, dx, c),
-// each an FMA.  The weights are one copy per library, so launches on two
-// streams must not overlap.
+// Design.  The TPU kernel ran 27*K scalar-by-plane FMAs so that W filled
+// its vector lanes; here
+// - a thread makes 4 adjacent pixels along W of all K channels, the 4*K
+//   sums in registers: its 3 x 6 x C neighbourhood is read once for four
+//   outputs, and each output channel's four values leave as one float4, a
+//   warp writing 512 contiguous bytes of one channel plane (where W % 4 != 0
+//   or y is not 16-byte aligned the same threads store their valid pixels
+//   one by one);
+// - the 9*C*K weights are loaded by every block from global memory (they
+//   stay in L2) into shared memory once; one broadcast 128-bit read of four
+//   k-weights then feeds 16 FMAs.  No launch copies anything or shares
+//   state with another, so launches on different streams are independent;
+// - a block walks over many tiles (BLOCKS_PER_SM blocks per SM cover the
+//   card once): a thread's stores are not waited for, so one tile's output
+//   drains while the next tile is computed, where a block per tile would
+//   compute, then store, then end;
+// - x comes through the read-only path.  At C = 3 with W % 4 == 0 and an
+//   aligned x a thread's 18 floats of a row are five aligned 16-byte loads:
+//   a third of the load instructions and of the cache lines they touch,
+//   which measurably frees the load / store unit.  (Staging the block's
+//   rows with their halo in shared memory by coalesced 16-byte loads was
+//   slower on an H100: a barrier and an exposed load per tile.)  Every
+//   other shape reads 4 bytes at a time: any C, any alignment;
+// - SAME padding is a bounds test that reads 0, and the products are summed
+//   in the order (dy, dx, c), each an FMA: an out-of-range tap adds
+//   fma(0, w, acc) = acc, so y is what one-pixel-per-thread summation in
+//   that order gives.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 256;
+// the fastest block shape and grid of those timed on an H100
+constexpr int BLOCK_X = 32;  // threads along W, each 4 pixels
+constexpr int BLOCK_Y = 8;   // rows
+constexpr int BLOCKS_PER_SM = 2;  // grid = SMs x this
+constexpr int THREADS = BLOCK_X * BLOCK_Y;
+constexpr int PX = 4;  // pixels per thread
 constexpr int MAX_C = 16;
-constexpr int MAX_K = 32;
-
-__constant__ float c_w[9 * MAX_C * MAX_K];  // [3,3,C,K]
 
 // C > 0: the input channel count, known at compile time; C == 0: c_rt.
-template <int K, int C>
+// VECX (C == 3 only): x is read 16 bytes at a time, which needs wd % 4 == 0
+// and x 16-byte aligned.  vec: y rows hold whole aligned float4s.
+template <int K, int C, bool VECX>
 __global__ void __launch_bounds__(THREADS)
-stem_conv_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
-                 int h, int wd, int c_rt) {
+stem_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ y, int n, int h, int wd, int c_rt,
+                 int vec) {
+  static_assert(!VECX || C == 3,
+                "float4 reads of x are for the 3-channel stem");
   const int c = C > 0 ? C : c_rt;
+  __shared__ __align__(16) float s_w[9 * (C > 0 ? C : MAX_C) * K];
+  const int lx = threadIdx.x % BLOCK_X;
+  const int ly = threadIdx.x / BLOCK_X;
   const size_t plane = static_cast<size_t>(h) * wd;
-  const size_t p = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
-  if (p >= static_cast<size_t>(n) * plane) return;
-  const int ni = static_cast<int>(p / plane);
-  const int rem = static_cast<int>(p - static_cast<size_t>(ni) * plane);
-  const int hi = rem / wd;
-  const int wi = rem - hi * wd;
+  const int tiles_x = (wd + BLOCK_X * PX - 1) / (BLOCK_X * PX);
+  const int tiles_y = (h + BLOCK_Y - 1) / BLOCK_Y;
+  const int tiles = n * tiles_y * tiles_x;
 
-  float acc[K];
+  for (int i = threadIdx.x; i < 9 * c * K; i += THREADS) s_w[i] = __ldg(w + i);
+  __syncthreads();
+
+  // a block walks over tiles (image, row block, column block): its stores
+  // of one tile drain while it computes the next
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int ni = tile / (tiles_y * tiles_x);
+    const int x0 = tile % tiles_x * BLOCK_X * PX;
+    const int y0 = tile / tiles_x % tiles_y * BLOCK_Y;
+    const int w0 = x0 + lx * PX;
+    const int hi = y0 + ly;
+    const float* xn = x + static_cast<size_t>(ni) * plane * c;
+    if (w0 >= wd || hi >= h) continue;
+
+    float acc[PX][K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.f;
-  const float* xn = x + static_cast<size_t>(ni) * plane * c;
+    for (int p = 0; p < PX; ++p)
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = hi + dy - 1;
-    if (yy < 0 || yy >= h) continue;
+      for (int k = 0; k < K; ++k) acc[p][k] = 0.f;
+
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = wi + dx - 1;
-      if (xx < 0 || xx >= wd) continue;
-      const float* xp = xn + (static_cast<size_t>(yy) * wd + xx) * c;
-      const float* wt = c_w + (dy * 3 + dx) * c * K;
+    for (int dy = 0; dy < 3; ++dy) {
+      const int yy = hi + dy - 1;
+      // compile-time C: the row's 6 x C values (pixels w0-1 .. w0+4), 0
+      // outside the image
+      float xr[C > 0 ? 6 * C : 1];
+      const float* row = nullptr;
+      if (yy < 0 || yy >= h) continue;  // the next dy
+      if constexpr (VECX) {
+        // the 18 floats from pixel w0-1 on start 1 float into the five
+        // aligned float4s from float 3*w0 - 4 of the row; each float4 lies
+        // wholly inside or outside the row because wd % 4 == 0
+        float q[20];
+        const float4* sr = reinterpret_cast<const float4*>(
+                               xn + static_cast<size_t>(yy) * wd * C) +
+                           (C * w0 / 4 - 1);
 #pragma unroll
-      for (int ci = 0; ci < c; ++ci) {
-        const float v = xp[ci];
+        for (int j = 0; j < 5; ++j) {
+          const int f = C * w0 - 4 + 4 * j;
+          float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (f >= 0 && f < wd * C) t = __ldg(sr + j);
+          q[4 * j + 0] = t.x;
+          q[4 * j + 1] = t.y;
+          q[4 * j + 2] = t.z;
+          q[4 * j + 3] = t.w;
+        }
 #pragma unroll
-        for (int k = 0; k < K; ++k) acc[k] = fmaf(v, wt[ci * K + k], acc[k]);
+        for (int j = 0; j < 6 * C; ++j) xr[j] = q[j + 1];
+      } else {
+        row = xn + static_cast<size_t>(yy) * wd * c;
+        if constexpr (C > 0) {
+#pragma unroll
+          for (int col = 0; col < 6; ++col) {
+            const int xx = w0 + col - 1;
+            const bool in = xx >= 0 && xx < wd;
+#pragma unroll
+            for (int ci = 0; ci < C; ++ci)
+              xr[col * C + ci] = in ? __ldg(row + xx * C + ci) : 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+#pragma unroll
+        for (int ci = 0; ci < (C > 0 ? C : c); ++ci) {
+          float xv[PX];
+#pragma unroll
+          for (int p = 0; p < PX; ++p) {
+            if constexpr (C > 0) {
+              xv[p] = xr[(p + dx) * C + ci];
+            } else {
+              const int xx = w0 + p + dx - 1;
+              xv[p] = xx >= 0 && xx < wd ? __ldg(row + xx * c + ci) : 0.f;
+            }
+          }
+          const float4* wq = reinterpret_cast<const float4*>(
+              s_w + ((dy * 3 + dx) * c + ci) * K);
+#pragma unroll
+          for (int kq = 0; kq < K / 4; ++kq) {
+            const float4 wv = wq[kq];
+#pragma unroll
+            for (int p = 0; p < PX; ++p) {
+              acc[p][4 * kq + 0] = fmaf(xv[p], wv.x, acc[p][4 * kq + 0]);
+              acc[p][4 * kq + 1] = fmaf(xv[p], wv.y, acc[p][4 * kq + 1]);
+              acc[p][4 * kq + 2] = fmaf(xv[p], wv.z, acc[p][4 * kq + 2]);
+              acc[p][4 * kq + 3] = fmaf(xv[p], wv.w, acc[p][4 * kq + 3]);
+            }
+          }
+        }
+      }
+    }
+
+    float* yo = y + (static_cast<size_t>(ni) * K * h + hi) * wd + w0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (vec) {
+        *reinterpret_cast<float4*>(yo + k * plane) =
+            make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
+      } else {
+#pragma unroll
+        for (int p = 0; p < PX; ++p)
+          if (w0 + p < wd) yo[k * plane + p] = acc[p][k];
       }
     }
   }
-  float* yo = y + static_cast<size_t>(ni) * K * plane + rem;
-#pragma unroll
-  for (int k = 0; k < K; ++k) yo[static_cast<size_t>(k) * plane] = acc[k];
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 template <int K>
 int launch(const float* x, const float* w, float* y, int n, int h, int wd,
            int c, cudaStream_t stream) {
-  cudaError_t err = cudaMemcpyToSymbolAsync(
-      c_w, w, static_cast<size_t>(9) * c * K * sizeof(float), 0,
-      cudaMemcpyDeviceToDevice, stream);
+  const long long tiles =
+      static_cast<long long>(n) *
+      ((h + BLOCK_Y - 1) / BLOCK_Y) *
+      ((wd + BLOCK_X * PX - 1) / (BLOCK_X * PX));
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t pixels = static_cast<size_t>(n) * h * wd;
-  const unsigned blocks =
-      static_cast<unsigned>((pixels + THREADS - 1) / THREADS);
-  if (c == 3) {
-    stem_conv_kernel<K, 3><<<blocks, THREADS, 0, stream>>>(x, y, n, h, wd, c);
+  const long long cover = static_cast<long long>(sms) * BLOCKS_PER_SM;
+  const int grid = static_cast<int>(tiles < cover ? tiles : cover);
+  const int vec = wd % 4 == 0 && aligned16(y) ? 1 : 0;
+  if (c == 3 && wd % 4 == 0 && aligned16(x)) {
+    stem_conv_kernel<K, 3, true>
+        <<<grid, THREADS, 0, stream>>>(x, w, y, n, h, wd, c, vec);
+  } else if (c == 3) {
+    stem_conv_kernel<K, 3, false>
+        <<<grid, THREADS, 0, stream>>>(x, w, y, n, h, wd, c, vec);
   } else {
-    stem_conv_kernel<K, 0><<<blocks, THREADS, 0, stream>>>(x, y, n, h, wd, c);
+    stem_conv_kernel<K, 0, false>
+        <<<grid, THREADS, 0, stream>>>(x, w, y, n, h, wd, c, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -102,17 +220,18 @@ int launch(const float* x, const float* w, float* y, int n, int h, int wd,
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  x [n,h,wd,c] f32, w [3,3,c,k]
-// f32 (device memory), y [n,k,h,wd] f32; k must be 8, 16 or 32 (the
-// accumulators are registers), c at most 16 (the weights fit the constant
-// bank).  Copies w and launches on `stream` without synchronising; returns
-// the first CUDA error (cudaErrorInvalidValue for an unsupported c or k).
+// f32 (device memory), y [n,k,h,wd] f32; k must be 8, 16 or 32 (the sums
+// are registers), c at most 16 (the weights' shared memory).  Launches on
+// `stream` without synchronising; returns the first CUDA error
+// (cudaErrorInvalidValue for an unsupported c or k).
 extern "C" int mcmda_stem_conv(const void* x, const void* w, void* y, int n,
                                int h, int wd, int c, int k, void* stream) {
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* yf = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c < 1 || c > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || c > MAX_C || n < 1 || h < 1 || wd < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (k) {
     case 8: return launch<8>(xf, wf, yf, n, h, wd, c, s);
     case 16: return launch<16>(xf, wf, yf, n, h, wd, c, s);

@@ -10,7 +10,11 @@ the label channels (index >= ``n_image``) are renormalised to sum to 1.
 - ``warp_affine_reference``: the plain PyTorch version, the oracle.
 - ``warp_affine``: the wrapper the pipeline calls.  A CPU tensor takes the
   plain version; a CUDA tensor launches the hand-written kernel
-  (``csrc/warp.cu``) or raises.  There is no silent fallback.
+  (``csrc/warp.cu``) or raises.  There is no silent fallback.  The kernel
+  rounds every product and sum of the coordinates and of the blend as the
+  plain version's tensor operations do, so its image channels are bitwise
+  the plain version's; the renormalised label channels agree to 1e-5 (the
+  label sum's order may differ).
 
 The TPU kernel's banded-matmul form and its sizing helpers (``band_bound``,
 ``tile_width``) exist because a TPU has no fast gather; they are not
@@ -97,8 +101,9 @@ def warp_affine(images, coefs, n_image: int | None = None):
     f32 = (torch.float32,)
     build.check("images", images, (b, h, w, c), f32, images.device)
     build.check("coefs", coefs, (b, 6), f32, images.device)
-    if b * h * w >= 2 ** 31:
-        raise ValueError("warp_affine: B*H*W must fit a 32-bit int")
+    if b * h * w >= 2 ** 31 or b > 65535:
+        raise ValueError("warp_affine: B*H*W must fit a 32-bit int and B "
+                         "(a grid dimension) be at most 65535")
 
     out = torch.empty_like(images)
     build.launch("mcmda_warp_affine", images.device, images.data_ptr(),

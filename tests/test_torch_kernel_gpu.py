@@ -8,9 +8,11 @@ skips without one.  On a GPU machine without jax::
 
 Tolerances: the convs rtol = atol = 1e-4 (the plain side f32 with TF32
 off, the kernels split TF32, which keeps f32-class accuracy: their error
-against an f64 conv is held to 4x the plain f32 conv's); the warp atol 1e-5 (its
-sampling coordinates are bitwise the plain version's; only the f32 blend
-rounds differently); the thin stem's gradients within 1e-4 of the largest.
+against an f64 conv is held to 4x the plain f32 conv's); the warp's image
+channels bitwise (``torch.equal``: its sampling coordinates and its blend
+round as the plain version's tensor operations do) and its renormalised
+label channels atol 1e-5 (the label sum's order may differ); the thin
+stem's gradients within 1e-4 of the largest.
 """
 
 import numpy as np
@@ -218,6 +220,72 @@ def test_warp_kernel_matches_plain(cuda_device, n_image):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+def _warp_case(device, b, h, w, c, seed, shift=None):
+    """Seeded packed batch and coefficients over the shipped ranges: flips
+    alternate, the last image is the identity transform; ``shift`` (pixels)
+    overrides the drawn shifts."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = pipeline.draw_params(gen, DataConfig(), b, device)
+    draws[:, 0] = (torch.arange(b, device=device) % 2).float()
+    if shift is not None:
+        draws[:, 3:] = shift
+    draws[-1] = torch.tensor([0.0, 0.0, 1.0, 0.0, 0.0])
+    coefs = wk.affine_coefs(*draws[:, 1:].unbind(-1), draws[:, 0], h, w)
+    # signed values everywhere would put the label sum near 0, where the
+    # division amplifies its last bits: callers renormalise x[..., n_image:]
+    x = torch.randn((b, h, w, c), device=device, generator=gen)
+    return x, coefs
+
+
+# (8, 3) takes the float4 kernel, (3, 3) the staged-store kernel (at widths
+# with and without whole float4 rows), the others the generic kernel; the
+# sizes leave ragged tiles on both axes
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,n_image", [
+    (64, 48, 8, 3), (37, 41, 8, 3), (64, 48, 3, 3), (37, 44, 3, 3),
+    (37, 41, 3, 3), (37, 41, 5, 2), (20, 24, 8, 8), (20, 24, 4, 0)])
+@pytest.mark.parametrize("shift", [None, 30.0])
+def test_warp_image_channels_bitwise_equal_plain(cuda_device, h, w, c,
+                                                 n_image, shift):
+    """Flips, rotation, zoom, the identity row and (shift 30) images pushed
+    so far that whole rows fall outside: the image channels equal the plain
+    version's bit for bit, the labels within 1e-5, and a second call on
+    the same inputs gives the same bits."""
+    x, coefs = _warp_case(cuda_device, 4, h, w, c, 21, shift)
+    x[..., n_image:] = x[..., n_image:].abs()  # labels are non-negative
+    got = wk.warp_affine(x, coefs, n_image=n_image)
+    torch.cuda.synchronize()
+    want = wk.warp_affine_reference(x, coefs, n_image=n_image)
+    assert torch.equal(got[..., :n_image], want[..., :n_image])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, wk.warp_affine(x, coefs, n_image=n_image))
+    if shift is None and n_image == c:
+        assert torch.equal(got[-1], x[-1])  # the identity row
+    if shift is not None:
+        zero = (want == 0).all(-1)
+        assert zero.float().mean() > 0.1
+        assert (got[zero] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 3])
+def test_warp_unaligned_tensor_takes_the_scalar_kernels(cuda_device, c):
+    """A contiguous tensor 4 bytes off a 16-byte boundary cannot take
+    float4 accesses: the entry point sends it to the kernels' scalar paths,
+    with the same bits."""
+    x, coefs = _warp_case(cuda_device, 2, 32, 32, c, 22)
+    x[..., 3:] = x[..., 3:].abs()  # labels are non-negative
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    off = flat[1:].view(x.shape)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    want = wk.warp_affine(x, coefs, n_image=3)
+    assert torch.equal(wk.warp_affine(off, coefs, n_image=3)[..., :3],
+                       want[..., :3])
+    torch.testing.assert_close(wk.warp_affine(off, coefs, n_image=3), want,
+                               rtol=0, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_train_wrappers_raise_instead_of_falling_back(cuda_device):
     x, w = _inputs(5, 1, 8, 8, 4, 8, cuda_device)[:2]
@@ -240,8 +308,12 @@ def test_train_wrappers_raise_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,c,k", [(2, 32, 32, 3, 16), (3, 17, 19, 3, 8),
-                                       (1, 9, 40, 5, 32)])
+@pytest.mark.parametrize("n,h,w,c,k", [
+    (2, 32, 32, 3, 16), (3, 17, 19, 3, 8), (1, 9, 40, 5, 32),
+    # four pixels per thread: widths with a ragged last thread (W % 4 != 0)
+    # and ragged blocks, each K, the thinnest and the widest C
+    (2, 37, 41, 3, 16), (2, 37, 44, 3, 32), (1, 12, 260, 3, 8),
+    (2, 19, 23, 1, 16), (1, 10, 36, 16, 32), (1, 11, 13, 16, 8)])
 def test_thin_conv_kernel_matches_plain(cuda_device, n, h, w, c, k):
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
@@ -255,6 +327,46 @@ def test_thin_conv_kernel_matches_plain(cuda_device, n, h, w, c, k):
     assert got.shape == (n, k, h, w) and got.is_contiguous()
     torch.testing.assert_close(got, sk.stem_conv_nhwc_reference(x, wt),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_thin_conv_two_streams_are_independent(cuda_device):
+    """Launches on two streams with different weights share no state (the
+    weights are loaded by each block, not copied into one bank per
+    library): every result is its own plain version's."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(8, 128, 128, 3)).astype(
+        np.float32)).to(cuda_device)
+    ws = [torch.from_numpy((s * rng.normal(size=(3, 3, 3, 16))).astype(
+        np.float32)).to(cuda_device) for s in (0.2, 1.0)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(8):
+        for st, w in zip(streams, ws):
+            with torch.cuda.stream(st):
+                outs.append((w, sk.stem_conv_forward(x, w)))
+    torch.cuda.synchronize()
+    for w, got in outs:
+        torch.testing.assert_close(got, sk.stem_conv_nhwc_reference(x, w),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_thin_conv_unaligned_x_takes_the_scalar_loads(cuda_device):
+    """x 4 bytes off a 16-byte boundary: no staged float4 loads, the same
+    bits."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(2, 16, 32, 3)).astype(
+        np.float32)).to(cuda_device)
+    w = torch.from_numpy((0.2 * rng.normal(size=(3, 3, 3, 16))).astype(
+        np.float32)).to(cuda_device)
+    off = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    want = sk.stem_conv_forward(x, w)
+    assert torch.equal(sk.stem_conv_forward(off, w), want)
 
 
 @pytest.mark.cuda
