@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port's serving, training and adaptation paths
-on one NVIDIA GPU.
+and of its library API on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments::
 
@@ -9,7 +9,8 @@ Run from the root of a checkout, with no arguments::
 Phases (any failure ends the run non-zero):
 
 1. device: the card (``nvidia-smi`` name and power limit), torch / CUDA
-   versions; TF32 pinned off so f32 means f32.
+   versions; TF32 pinned off by the port's device helper, so f32 means
+   f32.
 2. build: compiles the hand-written CUDA kernels from the checkout's
    sources (one nvcc per source, in parallel); prints ptxas's registers,
    shared memory and spills per kernel instantiation; no kernel may spill.
@@ -64,6 +65,16 @@ Phases (any failure ends the run non-zero):
    on the fused path (run.use_pallas): it resolves selection.json, the
    fused conv runs once per call site per forward batch, and the Dice /
    ASSD table is finite; ``predict`` serves the same selected checkpoint.
+10. api: ``api.train_source -> api.adapt -> api.evaluate -> api.predict``
+   at full width (see API_SETS) on the device-resident feed (step
+   counters, finite losses, selection.json and the materialized pick, a
+   finite table, uint8 masks, launches per step and per forward batch);
+   the same seeds through the CLI (every checkpoint bitwise equal); the
+   host-sampler feed (``api._ON_DEVICE_BYTES = 0``) through
+   ``prefetch_to_device`` and through a synchronous feed of the same
+   sampler stream (losses and final states bitwise equal); an
+   ``out_dir=None`` run that writes nothing; ms/step and
+   ``profiling.measure_step`` of the host-sampler steps with both feeds.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -980,44 +991,14 @@ def phase_train(torch, wk, tk, fk, tmp):
     return launches, time_train_step(torch)
 
 
-def profile_steps(torch, step, state, data, label: str, n: int = 3):
-    """Run ``n`` more steps under ``torch.profiler`` and print the host
-    clock per step, the device's busy time per step (the union of its
-    kernels' intervals) and its idle share of the window, and the kernels
-    that take the most device time.  A trace with no device events prints
-    "not measured"."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            state, _ = step(state, data, 1000 + i)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1000
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    if not spans:
-        print(f"{label} profile: {wall / n:.2f} ms/step; device time not "
-              "measured (no device events in the trace)", flush=True)
-        return
-    busy, end = 0.0, spans[0][0]
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    busy /= 1000.0
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
-                                                      - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"{label} profile ({n} steps): {wall / n:.2f} ms/step on the host "
-          f"clock, device busy {busy / n:.2f} ms/step, idle "
-          f"{100 * (1 - busy / wall):.1f}%, {len(kernels) / n:.0f} kernels "
-          "per step; top device time per step: "
-          + "; ".join(f"{k[:60]} {t / 1000 / n:.2f} ms" for k, t in top),
+def print_profile(label: str, m: dict) -> None:
+    """One line from ``profiling.measure_step``'s dict."""
+    print(f"{label} profile ({m['steps']} steps): "
+          f"{m['host_ms_per_step']:.2f} ms/step on the host clock, device "
+          f"busy {m['device_busy_ms_per_step']:.2f} ms/step, idle "
+          f"{100 * m['idle_share']:.1f}%, {m['kernels_per_step']:.0f} "
+          "kernels per step; top device time per step: "
+          + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in m["top_kernels"]),
           flush=True)
 
 
@@ -1027,6 +1008,7 @@ def time_train_step(torch):
     from mcmda_tpu_torch import config as config_mod
     from mcmda_tpu_torch.data import pipeline, synthetic, volumes
     from mcmda_tpu_torch.train import source
+    from mcmda_tpu_torch.utils import profiling
 
     base = config_mod.load_config(CONFIG)
     vols, labs = synthetic.make_dataset(0, "mri", 4, max(16, SIZE // 4), SIZE)
@@ -1054,7 +1036,8 @@ def time_train_step(torch):
               f"{TIMED_RUNS} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
-        profile_steps(torch, step, state, data, f"train step {name}")
+        print_profile(f"train step {name}",
+                      profiling.measure_step(step, state, data))
         del state
     return out
 
@@ -1256,6 +1239,7 @@ def time_adapt_step(torch, source_dir):
     from mcmda_tpu_torch import config as config_mod
     from mcmda_tpu_torch.data import pipeline, synthetic, volumes
     from mcmda_tpu_torch.train import adapt
+    from mcmda_tpu_torch.utils import profiling
 
     base = config_mod.load_config(CONFIG)
     data = {}
@@ -1287,7 +1271,8 @@ def time_adapt_step(torch, source_dir):
               f"{TIMED_RUNS} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
-        profile_steps(torch, step, state, data, f"adapt step {name}")
+        print_profile(f"adapt step {name}",
+                      profiling.measure_step(step, state, data))
         del state
     return out
 
@@ -1352,6 +1337,297 @@ def phase_evaluate(torch, fk, tmp, run_dir, n_sites):
     return n_eval + n_pred
 
 
+# phase 10: the --set overrides of the API path (beside the shipped config)
+API_SETS = ["segmenter.train_fused=pallas", "run.use_pallas=true",
+            "source.steps=10", "adapt.pretrain_steps=4", "adapt.steps=12",
+            "run.ckpt_every=5", "run.log_every=1"]
+
+
+def synchronous_feed(iterator, size=2, device="cuda"):
+    """``pipeline.prefetch_to_device``'s queue order with nothing in
+    flight: each batch is copied from pageable memory on the consumer's
+    stream and waited for.  What the prefetching feed is held against."""
+    import collections
+
+    import torch
+
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                      .to(device) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+
+
+def _npz_equal(a_path, b_path, weights, torch):
+    """Whether two npz checkpoints hold the same keys and, leaf for leaf,
+    the same bits."""
+    a, b = weights.read_npz(a_path), weights.read_npz(b_path)
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype
+        and torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k]))
+        for k in a)
+
+
+def _states_equal(a, b, weights, torch):
+    fa, fb = weights.flatten_state(a), weights.flatten_state(b)
+    return set(fa) == set(fb) and all(
+        torch.equal(torch.from_numpy(fa[k]), torch.from_numpy(fb[k]))
+        for k in fa)
+
+
+def phase_api(torch, wk, tk, fk, tmp, n_sites):
+    """Phase 10: the library API at full width.  Device-resident:
+    ``api.train_source -> api.adapt -> api.evaluate -> api.predict``, then
+    the same seeds through the CLI (final checkpoints bitwise equal).
+    Host-sampler (the cutoff set to 0): ``api.train_source`` and
+    ``api.adapt`` through ``prefetch_to_device`` and again through
+    ``synchronous_feed`` (losses and final states bitwise equal).  An
+    ``out_dir=None`` run writes nothing.  Then the host-sampler steps are
+    timed with both feeds.  Returns [warp, conv + moments, fused conv]
+    launches of the API and CLI runs."""
+    from mcmda_tpu_torch import api, cli, weights
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import pipeline, synthetic
+
+    cfg = config_mod.load_config(CONFIG, API_SETS)
+    n_src, n_pre, n_ad = (cfg.source.steps, cfg.adapt.pretrain_steps,
+                          cfg.adapt.steps)
+    # the phantoms --synthetic gives the CLI: the last target volume is the
+    # test set
+    depth = max(16, SIZE // 4)
+    sv, sl = synthetic.make_dataset(0, "mri", 4, depth, SIZE)
+    tv, tl = synthetic.make_dataset(0, "ct", 4, depth, SIZE)
+    tgt_train, test_v, test_l = tv[:-1], tv[-1:], tl[-1:]
+    total = [0, 0, 0]
+
+    def counted(label, fn, want):
+        """Run ``fn`` with the counts at 0; hold the launches (warp, conv +
+        moments, fused conv) to ``want``."""
+        torch.cuda.synchronize()
+        wk.LAUNCHES = tk.LAUNCHES = fk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (wk.LAUNCHES, tk.LAUNCHES, fk.LAUNCHES)
+        for i, n in enumerate(got):
+            total[i] += n
+        print(f"api {label}: wall {wall:.1f} s; launches warp {got[0]}, "
+              f"conv_stats {got[1]}, fused conv {got[2]}", flush=True)
+        if got != want:
+            fail(f"api {label}: launches {got}, expected {want}")
+        return out
+
+    def d(name):
+        return os.path.join(tmp, "api-" + name)
+
+    def check_runs(label, src_dir, ad_dir, src, ad):
+        """Step counters, finite losses, selection.json and the pick."""
+        if int(src.step) != n_src or int(ad.step) != n_pre + n_ad:
+            fail(f"api {label}: steps {int(src.step)}, {int(ad.step)}")
+        loss = _losses(src_dir)[0]
+        m = _adapt_metrics(ad_dir)
+        with open(os.path.join(ad_dir, "metrics.jsonl")) as f:
+            d_loss = [r["d_loss"] for r in map(json.loads, f)
+                      if "d_loss" in r]
+        if len(loss) != n_src or len(d_loss) != n_pre + n_ad or \
+                len(m["g_loss"]) != n_ad or not np.isfinite(
+                    loss + d_loss + m["g_loss"]).all():
+            fail(f"api {label}: losses {loss} {d_loss} {m['g_loss']}")
+        with open(os.path.join(ad_dir, "selection.json")) as f:
+            sel = json.load(f)
+        if sel["signal"] != "class_ratio" or not os.path.exists(
+                os.path.join(ad_dir, f"step_{sel['best_step']:08d}.npz")):
+            fail(f"api {label}: selection {sel}, files "
+                 f"{sorted(os.listdir(ad_dir))}")
+        print(f"api {label}: loss first {loss[0]:.6f} last {loss[-1]:.6f}; "
+              f"d_loss first {d_loss[0]:.6f} last {d_loss[-1]:.6f}; g_loss "
+              f"last {m['g_loss'][-1]:.6f}; selected step "
+              f"{sel['best_step']}; files {sorted(os.listdir(ad_dir))}",
+              flush=True)
+        return loss, d_loss, m["g_loss"], sel
+
+    # 1. device-resident, through the API
+    t1_want = (n_src, 15 * n_src, 0)
+    ad_want = (n_pre + n_ad, 15 * (n_pre + n_ad), 0)
+    src = counted("train_source", lambda: api.train_source(
+        cfg, sv, sl, out_dir=d("src")), t1_want)
+    ad = counted("adapt", lambda: api.adapt(
+        cfg, src, sv, sl, tgt_train, out_dir=d("ad")), ad_want)
+    api_run = check_runs("device-resident", d("src"), d("ad"), src, ad)
+    batches = -(-depth // BATCH)
+    table = counted("evaluate", lambda: api.evaluate(
+        cfg, ad, test_v, test_l), (0, 0, n_sites * batches))
+    masks = counted("predict", lambda: api.predict(
+        cfg, ad, test_v), (0, 0, n_sites * batches))
+    mean = table["mean"]
+    print(f"api evaluate: mean Dice {mean['dice']:.4f} ASSD "
+          f"{mean['assd']:.3f} HD95 {mean['hd95']:.3f} misses "
+          f"{mean['assd_misses']}; predict: mask {list(masks[0].shape)} "
+          f"{masks[0].dtype} classes "
+          f"{np.bincount(masks[0].ravel(), minlength=5).tolist()}",
+          flush=True)
+    if "raw" not in table or not all(
+            math.isfinite(mean[k]) for k in ("dice", "assd", "hd95")):
+        fail(f"api evaluate: table {mean}, keys {sorted(table)}")
+    if len(masks) != 1 or masks[0].shape != test_v[0].shape or \
+            masks[0].dtype != np.uint8 or masks[0].max() > 4:
+        fail(f"api predict: {masks[0].shape} {masks[0].dtype}")
+
+    # 2. the same seeds through the CLI
+    common = ["--config", CONFIG, "--synthetic", "--device", DEVICE,
+              *(a for kv in API_SETS for a in ("--set", kv))]
+    rcs = [counted("cli train-source", lambda: cli.main(
+               ["train-source", *common, "--out", d("cli-src")]), t1_want),
+           counted("cli adapt", lambda: cli.main(
+               ["adapt", *common, "--source-ckpt", d("cli-src"), "--out",
+                d("cli-ad")]), ad_want)]
+    if any(rcs):
+        fail(f"api: the CLI runs returned {rcs}")
+    for a_dir, c_dir, last in ((d("src"), d("cli-src"), n_src),
+                               (d("ad"), d("cli-ad"), n_pre + n_ad)):
+        ckpts = sorted(n for n in os.listdir(a_dir) if n.endswith(".npz"))
+        if f"step_{last:08d}.npz" not in ckpts or ckpts != sorted(
+                n for n in os.listdir(c_dir) if n.endswith(".npz")):
+            fail(f"api vs cli: checkpoints {ckpts} vs {os.listdir(c_dir)}")
+        for n in ckpts:
+            if not _npz_equal(os.path.join(a_dir, n), os.path.join(c_dir, n),
+                              weights, torch):
+                fail(f"api vs cli: {n} of {os.path.basename(a_dir)} differs")
+        print(f"api vs cli {os.path.basename(a_dir)}: {ckpts} bitwise "
+              "equal", flush=True)
+
+    # 3. host-sampler: the prefetching feed against a synchronous one
+    real_cutoff, real_feed = api._ON_DEVICE_BYTES, pipeline.prefetch_to_device
+    fed = []
+
+    def counting(feed_fn):
+        def feed(iterator, size=2, device="cuda"):
+            for batch in feed_fn(iterator, size, device):
+                fed.append(sorted(batch))
+                yield batch
+        return feed
+
+    host = {}
+    api._ON_DEVICE_BYTES = 0
+    try:
+        for name, feed_fn in (("prefetch", real_feed),
+                              ("synchronous", synchronous_feed)):
+            pipeline.prefetch_to_device = counting(feed_fn)
+            fed.clear()
+            h_src = counted(f"host-sampler {name} train_source",
+                            lambda: api.train_source(
+                                cfg, sv, sl, out_dir=d(f"host-{name}-src")),
+                            t1_want)
+            h_ad = counted(f"host-sampler {name} adapt", lambda: api.adapt(
+                cfg, h_src, sv, sl, tgt_train, out_dir=d(f"host-{name}-ad")),
+                ad_want)
+            want_fed = [["image", "label"]] * n_src \
+                + [["src_image", "tgt_image"]] * (n_pre + n_ad)
+            if fed != want_fed:
+                fail(f"api host-sampler {name}: the feed handed over "
+                     f"{len(fed)} batches {fed[:1]}..{fed[-1:]}, expected "
+                     f"{len(want_fed)}")
+            host[name] = (h_src, h_ad, check_runs(
+                f"host-sampler {name}", d(f"host-{name}-src"),
+                d(f"host-{name}-ad"), h_src, h_ad))
+    finally:
+        api._ON_DEVICE_BYTES = real_cutoff
+        pipeline.prefetch_to_device = real_feed
+    (p_src, p_ad, p_run), (s_src, s_ad, s_run) = (host["prefetch"],
+                                                  host["synchronous"])
+    same = (p_run == s_run and _states_equal(p_src, s_src, weights, torch)
+            and _states_equal(p_ad, s_ad, weights, torch))
+    print(f"api host-sampler: {n_src} + {n_pre + n_ad} batches through "
+          "prefetch_to_device (pinned ring, side stream); losses, "
+          "selection and final states against the synchronous feed "
+          f"{'bitwise equal' if same else 'DIFFER'}; against the "
+          "device-resident run the losses "
+          f"{'differ (other batches)' if p_run[0] != api_run[0] else 'ARE EQUAL'}",
+          flush=True)
+    if not same:
+        fail(f"api host-sampler: prefetch {p_run} vs synchronous {s_run}")
+    if p_run[0] == api_run[0]:
+        fail("api host-sampler: the run repeated the device-resident losses")
+
+    # 4. out_dir=None writes nothing
+    empty = d("nothing")
+    os.makedirs(empty)
+    before = sorted(os.listdir(tmp))
+    cwd = os.getcwd()
+    os.chdir(empty)
+    try:
+        none_state = counted("train_source out_dir=None",
+                             lambda: api.train_source(cfg, sv, sl, steps=2),
+                             (2, 30, 0))
+    finally:
+        os.chdir(cwd)
+    print(f"api out_dir=None: step {int(none_state.step)}, files written "
+          f"{os.listdir(empty)}", flush=True)
+    if int(none_state.step) != 2 or os.listdir(empty) or \
+            sorted(os.listdir(tmp)) != before:
+        fail(f"api out_dir=None wrote files: {os.listdir(empty)}, "
+             f"{sorted(os.listdir(tmp))}")
+
+    # 5. the host-sampler steps, timed with both feeds
+    time_host_steps(torch, cfg, src, sv, sl, tgt_train)
+    return total
+
+
+def time_host_steps(torch, cfg, src, sv, sl, tgt_train):
+    """ms/step (median of TIMED_RUNS after 5 warm-up, host clock around
+    ``next(feed)`` + step + synchronise) of the host-sampler T1 and adapt
+    steps with the prefetching feed and with the synchronous feed, in the
+    order prefetch, synchronous, synchronous, prefetch; then
+    ``measure_step`` of each feed."""
+    from mcmda_tpu_torch.data import pipeline, volumes
+    from mcmda_tpu_torch.train import adapt, drivers, source
+    from mcmda_tpu_torch.utils import profiling
+
+    src_ds = volumes.volumes_to_slices(sv, sl, context=3, drop_empty=True)
+    tgt_ds = volumes.volumes_to_slices(tgt_train, context=3)
+
+    def t1_stream():
+        return iter(pipeline.BatchSampler(src_ds, BATCH, seed=1,
+                                          num_classes=cfg.data.num_classes))
+
+    def adapt_stream():
+        return ({"src_image": a["image"], "tgt_image": b["image"]}
+                for a, b in zip(pipeline.BatchSampler(src_ds, BATCH, seed=3),
+                                pipeline.BatchSampler(tgt_ds, BATCH, seed=4)))
+
+    feeds = {"prefetch": lambda s: drivers.feed(s, DEVICE),
+             "synchronous": lambda s: synchronous_feed(s, 2, DEVICE)}
+    for label, step, state, stream in (
+            ("T1", drivers.wrap_dp(cfg, source.make_train_step,
+                                   device=DEVICE)[0],
+             src, t1_stream),
+            ("adapt", drivers.wrap_dp(cfg, adapt.make_adapt_step,
+                                      device=DEVICE)[0],
+             adapt.init_state(cfg.run.seed + 2, cfg, src.params,
+                              src.bn_state), adapt_stream)):
+        for name in ("prefetch", "synchronous", "synchronous", "prefetch"):
+            feed = feeds[name](stream())
+            st, times = state, []
+            for i in range(5 + TIMED_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, metrics = step(st, next(feed), i)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1000)
+            if not all(math.isfinite(float(v)) for v in metrics.values()):
+                fail(f"timed host-sampler {label} step: {metrics}")
+            print(f"host-sampler {label} step, {name} feed: "
+                  f"{statistics.median(times[5:]):.2f} ms/step (median of "
+                  f"{TIMED_RUNS} after 5 warm-up)", flush=True)
+            print_profile(f"host-sampler {label} step, {name} feed",
+                          profiling.measure_step(step, st, feed))
+
+
 def main() -> int:
     try:
         import torch
@@ -1368,6 +1644,7 @@ def main() -> int:
         from mcmda_tpu_torch.kernels import thin_conv as sk
         from mcmda_tpu_torch.kernels import train_conv as tk
         from mcmda_tpu_torch.kernels import warp as wk
+        from mcmda_tpu_torch.utils import device as device_mod
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
 
@@ -1377,13 +1654,14 @@ def main() -> int:
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device_mod.resolve(DEVICE)
     kind = torch.cuda.get_device_name(0)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(f"device: {kind}, {torch.cuda.device_count()} visible; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 off",
-          flush=True)
+          f"{torch.__version__}, CUDA {torch.version.cuda}; pins "
+          f"{json.dumps(device_mod.settings())}", flush=True)
+    if device_mod.settings()["tf32"]:
+        fail("TF32 is not pinned off")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1437,6 +1715,12 @@ def main() -> int:
 
         # 9. evaluate the adapted run on the fused path
         launches += phase_evaluate(torch, fk, tmp, adapt_dir, n_sites)
+
+        # 10. the library API, device-resident and host-sampler feeds
+        api_w, api_c, api_f = phase_api(torch, wk, tk, fk, tmp, n_sites)
+        warp_launches += api_w
+        conv_launches += api_c
+        launches += api_f
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

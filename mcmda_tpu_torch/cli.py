@@ -21,22 +21,14 @@ missing GPU is an error, never a quiet switch to the CPU.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
-import re
 import sys
 
 import numpy as np
 import torch
 
 from mcmda_tpu_torch import config as config_mod
-
-
-def _latest_step(ckpt_dir: str) -> int | None:
-    steps = [int(m.group(1)) for n in os.listdir(ckpt_dir)
-             if (m := re.match(r"step_(\d+)(\.npz)?$", n))]
-    return max(steps) if steps else None
 
 
 def _resolve_ckpt(path: str) -> str:
@@ -54,7 +46,8 @@ def _resolve_ckpt(path: str) -> str:
         if os.path.isdir(cand) or os.path.exists(cand + ".npz"):
             print(f"using selected checkpoint step {step} (selection.json)")
             return cand
-    step = _latest_step(path)
+    from mcmda_tpu_torch.utils import checkpoint
+    step = checkpoint.latest_step(path)
     if step is not None:
         return os.path.join(path, f"step_{step:08d}")
     return path
@@ -79,17 +72,15 @@ def _selected_weights(ckpt_path: str) -> str | None:
     return None
 
 
-def _device(name: str) -> torch.device:
-    """The device to run on.  On a GPU, f32 convs and matmuls are pinned to
-    full f32: cuDNN would otherwise run f32 convs in TF32."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(f"--device {name}: no CUDA device available "
-                             "(pass --device cpu to serve on the CPU)")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return device
+def _device(name: str, deterministic: bool = False) -> torch.device:
+    """``--device`` through the shared helper (``utils/device.py``: TF32
+    off on a GPU, deterministic cuDNN for the training commands); a missing
+    GPU ends the command."""
+    from mcmda_tpu_torch.utils import device as device_mod
+    try:
+        return device_mod.resolve(name, deterministic)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {name}: {e}")
 
 
 def _restore_eval_forward(cfg, args, device, use_kernel: bool = True):
@@ -98,36 +89,27 @@ def _restore_eval_forward(cfg, args, device, use_kernel: bool = True):
     honoring ``--weights``, ``run.eval_bf16`` and ``run.use_pallas`` (the
     fused path; ``use_kernel=False`` runs it on the kernel's plain
     version)."""
-    from mcmda_tpu_torch import weights
-    from mcmda_tpu_torch.models import segmenter
+    from mcmda_tpu_torch import api, weights
 
     cfg = config_mod.eval_view(cfg)
     if args.source_only:
         params, bn = weights.restore_source(args.ckpt, cfg, device)
-        dam, plug_depth = None, None
+        return api._eval_forward(cfg, params, bn, use_kernel=use_kernel)
+    state = weights.restore_adapt(args.ckpt, cfg, device)
+    if args.weights == "auto":
+        # prefer the variant the selection probe ranked best; fall back
+        # to the dam_ema heuristic for checkpoints without a selection
+        rec = _selected_weights(args.ckpt)
+        use_avg = (rec == "avg") if rec is not None \
+            else cfg.adapt.dam_ema > 0
     else:
-        state = weights.restore_adapt(args.ckpt, cfg, device)
-        if args.weights == "auto":
-            # prefer the variant the selection probe ranked best; fall back
-            # to the dam_ema heuristic for checkpoints without a selection
-            rec = _selected_weights(args.ckpt)
-            use_avg = (rec == "avg") if rec is not None \
-                else cfg.adapt.dam_ema > 0
-        else:
-            use_avg = args.weights == "avg"
-        if use_avg:
-            print("evaluating EMA-averaged DAM weights "
-                  f"(adapt.dam_ema={cfg.adapt.dam_ema})")
-        params = state["src_params"]
-        dam, bn = weights.eval_weights(state, use_avg)
-        plug_depth = cfg.adapt.plug_depth
-    if cfg.run.use_pallas:
-        return lambda img: segmenter.apply_fused_eval(
-            params, bn, img, cfg.segmenter, dam_params=dam,
-            plug_depth=plug_depth, use_kernel=use_kernel)[1]
-    return lambda img: segmenter.apply(
-        params, bn, img, cfg.segmenter, dam_params=dam,
-        plug_depth=plug_depth)[1]
+        use_avg = args.weights == "avg"
+    if use_avg:
+        print("evaluating EMA-averaged DAM weights "
+              f"(adapt.dam_ema={cfg.adapt.dam_ema})")
+    dam, bn = weights.eval_weights(state, use_avg)
+    return api._eval_forward(cfg, state["src_params"], bn, dam,
+                             use_kernel=use_kernel)
 
 
 _PREDICT_EXTS = (".nii", ".nii.gz", ".hdr", ".hdr.gz", ".img", ".img.gz",
@@ -139,19 +121,16 @@ def cmd_predict(args, use_kernel: bool = True):
     disk (NIfTI/npz/npy, matching the input format by default).
     ``use_kernel=False`` serves the fused path on the kernel's plain
     version (the reference a GPU run is compared with)."""
+    from mcmda_tpu_torch import api
     from mcmda_tpu_torch.data import splits, volumes as vio
-    from mcmda_tpu_torch.evaluation import inference, postprocess as pp_mod
+    from mcmda_tpu_torch.evaluation import inference
 
     cfg = config_mod.load_config(args.config, args.set)
     device = _device(args.device)
     args.ckpt = _resolve_ckpt(args.ckpt)
-    fwd = _restore_eval_forward(cfg, args, device, use_kernel)
-    tta = inference.get_tta(args.tta if args.tta is not None
-                            else cfg.run.eval_tta)
-    if tta is not None:
-        fwd = tta(fwd)
-    pp = pp_mod.get(args.postprocess if args.postprocess is not None
-                    else cfg.run.eval_postprocess)
+    fwd, pp = api._serving(
+        cfg, _restore_eval_forward(cfg, args, device, use_kernel),
+        args.postprocess, args.tta)
 
     paths = []
     for inp in args.input:
@@ -219,22 +198,19 @@ def _get_data(args, cfg):
 
 
 def cmd_train_source(args):
-    """T1: supervised source-segmenter training.  The dataset lives on the
-    device and each step samples there when it is under 1 GiB; a host
-    sampler feeds the steps otherwise.  ``val_dice`` on the last source
-    volume is logged at every checkpoint."""
-    import itertools
-
-    from mcmda_tpu_torch.data import pipeline, volumes as vio
+    """T1: supervised source-segmenter training, with the step and the feed
+    of ``api.train_source`` (the dataset lives on the device and each step
+    samples there when it is under the cutoff; a host sampler feeds the
+    steps otherwise).  ``val_dice`` on the last source volume is logged at
+    every checkpoint."""
+    from mcmda_tpu_torch import api
+    from mcmda_tpu_torch.data import volumes as vio
     from mcmda_tpu_torch.evaluation import report
     from mcmda_tpu_torch.train import loop, source
     from mcmda_tpu_torch.utils import checkpoint, logging as mlog
 
     cfg = config_mod.load_config(args.config, args.set)
-    device = _device(args.device)
-    if device.type == "cuda":
-        # deterministic cuDNN algorithms: a seeded run repeats bit for bit
-        torch.backends.cudnn.deterministic = True
+    device = _device(args.device, deterministic=True)
     src_vols, src_labs = _get_data(args, cfg)[0]
     ds = vio.volumes_to_slices(src_vols, src_labs,
                                context=cfg.data.context_slices,
@@ -247,28 +223,23 @@ def cmd_train_source(args):
         start = int(state.step)
     else:
         state, start = loop.maybe_resume(args.out, state)
-    on_device = ds.images.nbytes < 1 << 30
+    step_fn, feed, on_device = api._source_step_feed(cfg, ds, 0, device)
     print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
           flush=True)
-    if on_device:
-        step_fn = source.make_train_step(cfg, sample_from_device=True)
-        feed = itertools.repeat(pipeline.to_device_arrays(
-            ds, cfg.data.num_classes, device))
-    else:
-        step_fn = source.make_train_step(cfg)
-        feed = pipeline.to_device(iter(pipeline.BatchSampler(
-            ds, cfg.data.batch_size, seed=cfg.run.seed + 1,
-            num_classes=cfg.data.num_classes)), device)
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
-    eval_fwd = source.make_eval_forward(cfg)
+    # one forward for every callback: the state enters as fwd_args
+    eval_raw = source.make_eval_forward(cfg)
     val_vol, val_lab = src_vols[-1], src_labs[-1]
+
+    def val_fwd(img, params, bn_state):
+        return eval_raw(params, bn_state, img)
 
     def val_cb(step_i, st, _metrics=None):
         agg = report.evaluate_volumes(
-            lambda img: eval_fwd(st.params, st.bn_state, img), [val_vol],
-            [val_lab], context=cfg.data.context_slices,
-            batch_size=cfg.data.batch_size, device=device)
+            val_fwd, [val_vol], [val_lab], context=cfg.data.context_slices,
+            batch_size=cfg.data.batch_size,
+            fwd_args=(st.params, st.bn_state), device=device)
         logger.log(step_i, {"val_dice": agg["mean"]["dice"]})
 
     loop.run(step_fn, state, feed, cfg.source.steps, seed=cfg.run.seed,
@@ -282,24 +253,19 @@ def cmd_train_source(args):
 
 def cmd_adapt(args):
     """T3 + T2: the critic pretrain phase (``adapt.pretrain_steps``), then
-    adversarial adaptation from a source checkpoint, with class-ratio
-    checkpoint selection (``selection.json``, the selected checkpoint
-    materialized at the end) and snapshot PNGs at every checkpoint.  The
-    two datasets live on the device and each step samples there when they
-    are under 1 GiB together; two host samplers feed the steps otherwise."""
-    import itertools
-
-    from mcmda_tpu_torch import weights
-    from mcmda_tpu_torch.data import pipeline, volumes as vio
+    adversarial adaptation from a source checkpoint, with the steps and the
+    feeds of ``api.adapt`` (device-resident under the cutoff, else two host
+    samplers), checkpoint selection by ``adapt.select_signal``
+    (``selection.json``, the selected checkpoint materialized at the end)
+    and snapshot PNGs at every checkpoint."""
+    from mcmda_tpu_torch import api, weights
+    from mcmda_tpu_torch.data import volumes as vio
     from mcmda_tpu_torch.evaluation import snapshots
     from mcmda_tpu_torch.train import adapt, loop
     from mcmda_tpu_torch.utils import checkpoint, logging as mlog
 
     cfg = config_mod.load_config(args.config, args.set)
-    device = _device(args.device)
-    if device.type == "cuda":
-        # deterministic cuDNN algorithms: a seeded run repeats bit for bit
-        torch.backends.cudnn.deterministic = True
+    device = _device(args.device, deterministic=True)
     (src_vols, src_labs), tgt_train, _ = _get_data(args, cfg)
     src_ds = vio.volumes_to_slices(src_vols, src_labs,
                                    context=cfg.data.context_slices,
@@ -308,12 +274,6 @@ def cmd_adapt(args):
                                    context=cfg.data.context_slices)
     print(f"adaptation: {len(src_ds)} source / {len(tgt_ds)} target slices",
           flush=True)
-    # selection inputs: up to 64 target slices spread evenly, and the class
-    # fractions of the source labels
-    probe_idx = np.linspace(0, len(tgt_ds) - 1,
-                            min(64, len(tgt_ds))).astype(int)
-    probe_images = tgt_ds.images[probe_idx]
-    ref_fracs = adapt.label_fractions(src_labs, cfg.data.num_classes)
     # K1 handoff: the source checkpoint goes into the frozen path and the DAM
     params, bn = weights.restore_source(_resolve_ckpt(args.source_ckpt), cfg,
                                         device)
@@ -323,29 +283,10 @@ def cmd_adapt(args):
         start = int(state.step)
     else:
         state, start = loop.maybe_resume(args.out, state)
-
-    on_device = (src_ds.images.nbytes + tgt_ds.images.nbytes) < 1 << 30
+    mk_step, make_feed, on_device = api._adapt_step_feed(cfg, src_ds, tgt_ds,
+                                                         0, device)
     print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
           flush=True)
-    if on_device:
-        device_data = {"src": pipeline.to_device_arrays(src_ds,
-                                                        device=device),
-                       "tgt": pipeline.to_device_arrays(tgt_ds,
-                                                        device=device)}
-
-        def make_feed():
-            return itertools.repeat(device_data)
-    else:
-        bs = cfg.data.batch_size
-        src_sampler = iter(pipeline.BatchSampler(src_ds, bs,
-                                                 seed=cfg.run.seed + 3))
-        tgt_sampler = iter(pipeline.BatchSampler(tgt_ds, bs,
-                                                 seed=cfg.run.seed + 4))
-
-        def make_feed():
-            pairs = ({"src_image": sb["image"], "tgt_image": tb["image"]}
-                     for sb, tb in zip(src_sampler, tgt_sampler))
-            return pipeline.to_device(pairs, device)
 
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
@@ -366,22 +307,14 @@ def cmd_adapt(args):
     # later
     eq_selector = adapt.EquilibriumSelector(
         warmup_step=cfg.adapt.pretrain_steps + cfg.adapt.steps // 5)
-    cr_selector = adapt.ClassRatioSelector(
-        ref_fracs, warmup_step=adapt.select_warmup(cfg),
-        policy=cfg.adapt.select_policy, topk=cfg.adapt.select_topk,
-        smooth_window=adapt.smooth_window(cfg))
+    cr_selector = api._class_ratio_selector(cfg, src_labs)
     selector = cr_selector if cfg.adapt.select_signal == "class_ratio" \
         else eq_selector
     select_probe = adapt.SelectionProbe(
-        adapt.make_select_bundle(cfg, probe_images,
+        adapt.make_select_bundle(cfg, api._probe_images(tgt_ds),
                                  dual=cfg.adapt.dam_ema > 0),
         primary=selector, cr_selector=cr_selector, eq_selector=eq_selector,
         logger=logger, save_dir=args.out)
-    sel_every = cfg.adapt.select_every or cfg.run.ckpt_every
-    sel_every = min(sel_every, max(1, cfg.adapt.steps // 4))  # short runs
-
-    def mk_step(**kw):
-        return adapt.make_adapt_step(cfg, sample_from_device=on_device, **kw)
 
     if cfg.adapt.pretrain_steps and start < cfg.adapt.pretrain_steps:
         state, _ = loop.run(mk_step(train_g=False), state, make_feed(),
@@ -394,7 +327,8 @@ def cmd_adapt(args):
                         seed=cfg.run.seed + 6, log_every=cfg.run.log_every,
                         ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
                         logger=logger, start_step=start,
-                        callback=snapshot_cb, probe_every=sel_every,
+                        callback=snapshot_cb,
+                        probe_every=api._select_every(cfg, cfg.adapt.steps),
                         probe=select_probe,
                         protect_steps=select_probe.protect_steps)
     select_probe.finalize()  # the last deferred tick + the smoothing tail
@@ -402,22 +336,7 @@ def cmd_adapt(args):
     if best is not None:
         print(f"selected checkpoint ({selector.signal}): step {best} "
               f"(score {selector.best_score:.4f})", flush=True)
-        base = os.path.join(args.out, f"step_{best:08d}")
-        if select_probe.best_stash and not os.path.exists(base + ".npz"):
-            # the final state with the stashed DAM / target BN of the pick;
-            # the frozen paths never change, and the optimizer state does
-            # not matter to evaluation.  The stash holds the chosen weight
-            # variant, so ema_w = 0 makes any later --weights avg fall back
-            # to exactly those weights.
-            stash = select_probe.best_stash
-            sel_state = dataclasses.replace(
-                state, dam_params=stash["dam_params"],
-                tgt_bn=stash["tgt_bn"],
-                step=torch.tensor(best, dtype=torch.int32))
-            if sel_state.ema_w is not None:
-                sel_state = dataclasses.replace(
-                    sel_state, ema_w=torch.zeros_like(sel_state.ema_w))
-            checkpoint.save(args.out, sel_state, step=best)
+        if api._materialize_pick(args.out, state, select_probe, selector):
             print(f"materialized selected checkpoint at step {best}",
                   flush=True)
     logger.close()
@@ -430,21 +349,17 @@ def cmd_evaluate(args, use_kernel: bool = True):
     volumes, through the eval forward ``predict`` serves (the fused path
     under ``run.use_pallas``).  Prints the table and returns the metrics;
     ``--json-out`` writes them."""
+    from mcmda_tpu_torch import api
     from mcmda_tpu_torch.data import splits
-    from mcmda_tpu_torch.evaluation import inference, postprocess as pp_mod
     from mcmda_tpu_torch.evaluation import report
 
     cfg = config_mod.load_config(args.config, args.set)
     device = _device(args.device)
     args.ckpt = _resolve_ckpt(args.ckpt)
     _, _, (test_vols, test_labs) = _get_data(args, cfg)
-    fwd = _restore_eval_forward(cfg, args, device, use_kernel)
-    tta = inference.get_tta(args.tta if args.tta is not None
-                            else cfg.run.eval_tta)
-    if tta is not None:
-        fwd = tta(fwd)
-    pp = pp_mod.get(args.postprocess if args.postprocess is not None
-                    else cfg.run.eval_postprocess)
+    fwd, pp = api._serving(
+        cfg, _restore_eval_forward(cfg, args, device, use_kernel),
+        args.postprocess, args.tta)
     agg = report.evaluate_volumes(fwd, test_vols, test_labs,
                                   context=cfg.data.context_slices,
                                   batch_size=cfg.data.batch_size,

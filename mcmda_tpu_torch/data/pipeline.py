@@ -3,7 +3,9 @@
 Augmentation is a random flip + joint affine rotate / zoom / shift of the
 (image, one-hot label) pair on the device, so the only host work per step
 is, at most, an integer gather.  When the dataset fits the device it lives
-there whole and each step samples its batch on the device.
+there whole and each step samples its batch on the device.  A larger
+dataset stays on the host: ``BatchSampler`` draws numpy batches and
+``prefetch_to_device`` keeps two of them in flight to the device.
 
 The per-image parameters ``(flip, theta, zoom, shift_y, shift_x)`` come from
 ``draw_params`` with a ``torch.Generator``, or are injected (``draws``):
@@ -18,6 +20,7 @@ version on the CPU); ``"xla"`` is the plain flip-then-warp of
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Iterator
 
@@ -177,8 +180,135 @@ class BatchSampler:
             yield batch
 
 
-def to_device(stream: Iterator[dict], device) -> Iterator[dict]:
-    """Move each numpy batch of ``stream`` to ``device`` as f32 tensors."""
+# ----------------------------------------------------- host-side augmentation
+def augment_batch_host(rng: np.random.Generator, images: np.ndarray,
+                       labels_onehot: np.ndarray | None, cfg: DataConfig):
+    """scipy-based joint augmentation on the HOST (numpy in, numpy out;
+    copy of the JAX package's).  The transform family and the parameter
+    ranges of ``augment_batch``; nothing on the main path calls it."""
+    from scipy import ndimage as ndi
+
+    out_i = np.empty_like(images)
+    out_l = np.empty_like(labels_onehot) if labels_onehot is not None else None
+    h, w = images.shape[1:3]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    for b in range(images.shape[0]):
+        flip = cfg.flip and rng.random() < 0.5
+        theta = rng.uniform(-1, 1) * np.deg2rad(cfg.rotate_degrees)
+        zoom = rng.uniform(*cfg.zoom_range)
+        sy = rng.uniform(-cfg.shift_pixels, cfg.shift_pixels)
+        sx = rng.uniform(-cfg.shift_pixels, cfg.shift_pixels)
+        cos, sin = np.cos(theta), np.sin(theta)
+        mat = np.array([[cos, -sin], [sin, cos]]) / zoom
+        offset = np.array([cy - sy, cx - sx]) - mat @ np.array([cy, cx])
+
+        def warp(img2d, order):
+            return ndi.affine_transform(img2d, mat, offset=offset, order=order,
+                                        mode="constant", cval=0.0)
+
+        im = images[b, :, ::-1] if flip else images[b]
+        out_i[b] = np.stack([warp(im[..., c], 1)
+                             for c in range(im.shape[-1])], -1)
+        if out_l is not None:
+            lb = labels_onehot[b, :, ::-1] if flip else labels_onehot[b]
+            wl = np.stack([warp(lb[..., c], 1) for c in range(lb.shape[-1])],
+                          -1)
+            out_l[b] = wl / np.maximum(wl.sum(-1, keepdims=True), 1e-6)
+    return out_i, out_l
+
+
+def host_augmented(stream: Iterator, cfg: DataConfig, seed: int = 0,
+                   keys=("image",), label_key: str | None = "label") -> Iterator:
+    """Wrap a batch stream with host-side augmentation (copy of the JAX
+    package's).  ``keys`` are image arrays to augment independently;
+    ``label_key`` (if present in the batch) is warped jointly with
+    "image"."""
+    rng = np.random.default_rng(seed)
     for batch in stream:
-        yield {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-               .to(device, non_blocking=True) for k, v in batch.items()}
+        out = dict(batch)
+        for k in keys:
+            if k == "image" and label_key and label_key in batch:
+                out[k], out[label_key] = augment_batch_host(
+                    rng, batch[k], batch[label_key], cfg)
+            elif k in batch:
+                out[k], _ = augment_batch_host(rng, batch[k], None, cfg)
+        yield out
+
+
+# ------------------------------------------------------ host-to-device feed
+class _PinnedStager:
+    """Host-to-GPU copies of numpy batches that overlap the consumer's
+    work: each batch is staged in pinned host memory and copied with
+    ``non_blocking=True`` on a side stream.
+
+    ``put`` returns (tensors, event of the copy); ``take`` makes the
+    consumer's current stream wait on that event and marks the tensors as
+    used on it, so the caching allocator does not hand their memory (it
+    belongs to the side stream) to a later copy while a kernel still reads
+    it.  The pinned buffers form a ring of ``slots`` batches, sized on the
+    first batch; a slot is rewritten only after the copy that last read it
+    has finished."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.ring = [{} for _ in range(slots)]
+        self.done = [None] * slots
+        self.n = 0
+
+    def put(self, batch: dict):
+        slot = self.n % len(self.ring)
+        self.n += 1
+        if self.done[slot] is not None:
+            self.done[slot].synchronize()
+        staged = self.ring[slot]
+        out = {}
+        for k, v in batch.items():
+            src = torch.from_numpy(np.asarray(v))
+            if k not in staged or staged[k].shape != src.shape:
+                staged[k] = torch.empty(src.shape, dtype=torch.float32,
+                                        pin_memory=True)
+            staged[k].copy_(src)
+        with torch.cuda.stream(self.stream):
+            for k in batch:
+                out[k] = staged[k].to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.done[slot] = event
+        return out, event
+
+    def take(self, item) -> dict:
+        out, event = item
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(event)
+        for t in out.values():
+            t.record_stream(current)
+        return out
+
+
+def prefetch_to_device(iterator: Iterator[dict], size: int = 2,
+                       device="cuda") -> Iterator[dict]:
+    """Double-buffered device feed: numpy batches in, f32 tensors on
+    ``device`` out, in order, with ``size`` batches in flight so that the
+    host's gather and the copy overlap the step before.  On a GPU the
+    copies go through pinned memory on a side stream (``_PinnedStager``);
+    on the CPU it is a plain conversion in the same queue order."""
+    device = torch.device(device)
+    queue: collections.deque = collections.deque()
+    if device.type == "cuda":
+        stager = _PinnedStager(device, max(1, size))
+        put, take = stager.put, stager.take
+    else:
+        def put(batch):
+            return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                    for k, v in batch.items()}
+
+        def take(item):
+            return item
+
+    for batch in iterator:
+        queue.append(put(batch))
+        if len(queue) >= size:
+            yield take(queue.popleft())
+    while queue:
+        yield take(queue.popleft())

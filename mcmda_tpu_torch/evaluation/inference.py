@@ -51,16 +51,20 @@ def get_tta(name: str | None):
 
 @torch.inference_mode()
 def predict_volume(forward, volume: np.ndarray, *, context: int = 3,
-                   batch_size: int = 8, device="cuda") -> np.ndarray:
-    """Run ``forward(images[B,H,W,ctx]) -> probs[B,H,W,K]`` over every slice
-    of the [S,H,W] ``volume``; returns the label volume [S,H,W] int32."""
+                   batch_size: int = 8, fwd_args=(),
+                   device="cuda") -> np.ndarray:
+    """Run ``forward(images[B,H,W,ctx], *fwd_args) -> probs[B,H,W,K]`` over
+    every slice of the [S,H,W] ``volume``; returns the label volume
+    [S,H,W] int32.  ``fwd_args`` carries what changes between calls (the
+    weights of a periodic validation) so that ``forward`` itself can stay
+    one function."""
     s = volume.shape[0]
     vol = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(device)
     idx = _stack_index(s, context, batch_size, device)
     preds = []
     for i in range(0, idx.shape[0], batch_size):
         xb = vol[idx[i:i + batch_size]].permute(0, 2, 3, 1).contiguous()
-        preds.append(torch.argmax(forward(xb), dim=-1))
+        preds.append(torch.argmax(forward(xb, *fwd_args), dim=-1))
     return torch.cat(preds)[:s].to(torch.int32).cpu().numpy()
 
 

@@ -63,10 +63,10 @@ def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
                      labels: Sequence[np.ndarray], *, context: int = 3,
                      batch_size: int = 8, spacing=None,
                      structures: dict = STRUCTURES,
-                     postprocess: Callable | None = None,
+                     postprocess: Callable | None = None, fwd_args=(),
                      device="cuda") -> dict:
-    """Evaluate ``forward(images) -> probs`` over volumes -> aggregated
-    metric table.
+    """Evaluate ``forward(images, *fwd_args) -> probs`` over volumes ->
+    aggregated metric table.
 
     ``spacing``: None (voxel units), one [3] spacing for all volumes, or a
     per-volume sequence of spacings (mm-correct ASD).  ``postprocess``, a
@@ -81,7 +81,8 @@ def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
         if sp is not None and np.ndim(sp) > 1:
             sp = spacing[i]
         pred = inference.predict_volume(forward, vol, context=context,
-                                        batch_size=batch_size, device=device)
+                                        batch_size=batch_size,
+                                        fwd_args=fwd_args, device=device)
         if postprocess is not None:
             per_vol_raw.append(_metrics_one(pred, lab, structures, sp))
             pred = postprocess(pred, structures)

@@ -4,7 +4,11 @@
 A checkpoint is ``<dir>/step_XXXXXXXX.npz`` in the JAX package's flat key
 layout (``weights.flatten_state``), so the JAX package restores the port's
 checkpoints and the port resumes the JAX package's.  Orbax directories
-cannot be read without jax and raise (``weights.read_npz``).
+(``step_XXXXXXXX/``, what the JAX package writes on one device) cannot be
+read without jax: ``restore`` raises on one (``weights.read_npz``), ``prune``
+never deletes one, and ``latest_step`` raises when the newest step of a run
+directory exists only as one, so that a run never starts from step 0 beside
+newer checkpoints it cannot read.
 """
 
 from __future__ import annotations
@@ -62,8 +66,17 @@ def prune(ckpt_dir: str, keep: int = 3, protect=(),
 
 
 def latest_step(ckpt_dir: str) -> int | None:
-    """The newest step with a checkpoint in ``ckpt_dir`` (None if none)."""
+    """The newest step with a checkpoint in ``ckpt_dir`` (None if none).
+    Counts ``step_N/`` orbax directories too, as the JAX package does, and
+    raises ``weights.read_npz``'s error (what the directory is, and the npz
+    conversion to run in the JAX package) when the newest step has no npz
+    file."""
     if not os.path.isdir(ckpt_dir):
         return None
     steps = _steps(ckpt_dir)
+    orbax = [int(m.group(1)) for n in os.listdir(ckpt_dir)
+             if (m := re.match(r"step_(\d+)$", n))
+             and os.path.isdir(os.path.join(ckpt_dir, n))]
+    if orbax and max(orbax) > (steps[-1] if steps else -1):
+        weights.read_npz(os.path.join(ckpt_dir, f"step_{max(orbax):08d}"))
     return steps[-1] if steps else None

@@ -1,0 +1,135 @@
+"""Profiling / tracing (counterpart of ``mcmda_tpu/utils/profiling.py``).
+
+- ``trace(logdir)``: a ``torch.profiler`` context that writes a Chrome
+  trace (``chrome://tracing``, Perfetto) into ``logdir``.
+- ``StepTimer``: host-clock per-step timing with device synchronisation,
+  reporting throughput (slices/sec/chip) over a sliding window.
+- ``measure_step``: a few steps under the profiler -> host clock per step,
+  the device's busy time and idle share, kernels per step and the kernels
+  that take the most device time.
+
+The JAX package's ``hbm_traffic_from_trace`` and
+``aggregate_roofline_traffic`` parse XProf tables, which CUDA does not
+have, and are not ported; ``measure_step`` stands where it has
+``measure_step_hbm_traffic``.
+"""
+
+from __future__ import annotations
+
+import collections.abc
+import contextlib
+import os
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block (host activity, and the GPU's when there is one)
+    and write ``<logdir>/trace.json``; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def busy_time(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals: the time during
+    which at least one of them is open.  Overlapping and nested intervals
+    count once."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
+def measure_step(step, state, data, n: int = 3) -> dict:
+    """Run ``n`` steps ``step(state, data, seed)`` on the GPU under
+    ``torch.profiler`` and return
+
+      steps                  n
+      host_ms_per_step       host clock around the n steps and a final
+                             synchronise, per step
+      device_busy_ms_per_step  union of the device events' intervals (kernels
+                             and copies), per step
+      idle_share             1 - device busy time / host clock
+      kernels_per_step       device events per step
+      top_kernels            [(name, device ms per step)], the 5 largest
+
+    ``data`` is what every step gets; an iterator (a feed) gives each step
+    its ``next``.  The input ``state`` survives the call (states are
+    functional).  Raises if the trace holds no device event.  This stands
+    where the JAX package has ``measure_step_hbm_traffic``, which reads HBM
+    traffic from XProf's roofline tables; CUDA's profiler has no such
+    table, so the port measures where the device's time goes instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    feed = isinstance(data, collections.abc.Iterator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            state, _ = step(state, next(data) if feed else data, 1000 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("measure_step: no device events in the trace")
+    busy = busy_time((e.time_range.start, e.time_range.end)
+                     for e in events) / 1000.0
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"steps": n, "host_ms_per_step": wall / n,
+            "device_busy_ms_per_step": busy / n,
+            "idle_share": 1 - busy / wall,
+            "kernels_per_step": len(events) / n,
+            "top_kernels": [(k, t / 1000.0 / n) for k, t in top]}
+
+
+class StepTimer:
+    def __init__(self, batch_size: int, num_devices: int = 1,
+                 window: int = 50):
+        self.batch = batch_size
+        self.ndev = max(1, num_devices)
+        self.window = window
+        self._t = []
+
+    def tick(self, sync_value=None) -> None:
+        """Record a step boundary, after the device of ``sync_value`` (a
+        CUDA tensor, or a tree of them) has finished its queued work."""
+        for device in {t.device for t in _tensors(sync_value) if t.is_cuda}:
+            torch.cuda.synchronize(device)
+        self._t.append(time.perf_counter())
+        if len(self._t) > self.window + 1:
+            self._t.pop(0)
+
+    @property
+    def slices_per_sec_per_chip(self) -> float:
+        if len(self._t) < 2:
+            return 0.0
+        dt = (self._t[-1] - self._t[0]) / (len(self._t) - 1)
+        return self.batch / dt / self.ndev
+
+
+def _tensors(node):
+    """The tensors in a tree of dicts, tuples and lists."""
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif isinstance(node, (tuple, list)):
+        for v in node:
+            yield from _tensors(v)

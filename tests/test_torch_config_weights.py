@@ -178,10 +178,14 @@ def test_shape_mismatch_raises(tmp_path):
 def test_orbax_directory_raises(tmp_path):
     (tmp_path / "run" / "step_00000007").mkdir(parents=True)
     cfg, t_cfg = _cfgs()
-    ckpt = tcli._resolve_ckpt(str(tmp_path / "run"))
-    assert ckpt.endswith("step_00000007")
+    # a run directory whose newest step is an orbax directory: --ckpt
+    # refuses it as --out's resume does (checkpoint.latest_step), and so
+    # does a restore of the step path itself
     with pytest.raises(ValueError, match="orbax"):
-        weights.restore_source(ckpt, t_cfg, "cpu")
+        tcli._resolve_ckpt(str(tmp_path / "run"))
+    with pytest.raises(ValueError, match="orbax"):
+        weights.restore_source(str(tmp_path / "run" / "step_00000007"),
+                               t_cfg, "cpu")
 
 
 def test_cli_resolves_selection_and_latest(tmp_path):

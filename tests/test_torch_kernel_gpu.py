@@ -26,15 +26,14 @@ from mcmda_tpu_torch.kernels import thin_conv as sk
 from mcmda_tpu_torch.kernels import train_conv as tk
 from mcmda_tpu_torch.kernels import warp as wk
 from mcmda_tpu_torch.models import segmenter
+from mcmda_tpu_torch.utils import device as device_mod
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py covers the kernel")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    return device_mod.resolve("cuda")
 
 
 def _inputs(seed, n, h, w, c, k, device):
@@ -419,3 +418,69 @@ def test_thin_conv_wrapper_raises_instead_of_falling_back(cuda_device):
         sk.stem_conv_forward(x.transpose(1, 2), w)
     with pytest.raises(ValueError, match="is on cpu"):
         sk.stem_conv_forward(x, w.cpu())
+
+
+# ------------------------------------------------ the host feed and the pins
+@pytest.mark.cuda
+def test_prefetched_feed_equals_synchronous_feed(cuda_device):
+    """20 batches through ``prefetch_to_device`` (pinned staging ring, side
+    stream) on a consumer that runs on a stream of its own, against a
+    blocking copy of the same batches: bitwise equal after device work that
+    keeps each batch in use while later copies are in flight."""
+    def stream():
+        rng = np.random.default_rng(4)
+        for _ in range(20):
+            yield {"image": rng.normal(size=(8, 256, 256, 3)),  # f64 in
+                   "label": rng.random((8, 256, 256, 5), np.float32)}
+
+    def work(b):
+        acc = b["image"]
+        for _ in range(20):  # outlives the host's next put
+            acc = acc * 1.0001 + 0.5
+        return acc.sum((1, 2)), b["label"].mean((1, 2))
+
+    consumer = torch.cuda.Stream()
+    got = []
+    with torch.cuda.stream(consumer):
+        for b in pipeline.prefetch_to_device(stream(), size=2,
+                                             device=cuda_device):
+            assert b["image"].is_cuda and b["image"].dtype == torch.float32
+            got.append(work(b))
+            del b
+    torch.cuda.synchronize()
+    want = [work({k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                  .to(cuda_device) for k, v in b.items()})
+            for b in stream()]
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 20
+    for (gi, gl), (wi, wl) in zip(got, want):
+        assert torch.equal(gi, wi) and torch.equal(gl, wl)
+
+
+@pytest.mark.cuda
+def test_device_helper_pins_tf32_off_and_deterministic_cudnn():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        assert device_mod.settings() == {"tf32": True,
+                                         "cudnn_deterministic": False}
+        assert device_mod.resolve("cuda") == torch.device("cuda")
+        assert device_mod.settings() == {"tf32": False,
+                                         "cudnn_deterministic": False}
+        device_mod.resolve("cuda:0", deterministic=True)
+        assert device_mod.settings() == {"tf32": False,
+                                         "cudnn_deterministic": True}
+        # f32 means f32: a matmul agrees with its f64 value to f32 rounding
+        a = torch.randn(512, 512, device="cuda")
+        err = ((a @ a).double() - a.double() @ a.double()).abs().max()
+        assert err.item() < 1e-3
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved

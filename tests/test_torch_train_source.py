@@ -403,8 +403,8 @@ def test_feeds_match_jax_sampler():
     np.testing.assert_array_equal(ds.images, jds.images)
     np.testing.assert_array_equal(ds.labels, jds.labels)
     jit = iter(jpipe.BatchSampler(jds, 4, seed=3, num_classes=5))
-    tit = pipeline.to_device(iter(pipeline.BatchSampler(
-        ds, 4, seed=3, num_classes=5)), "cpu")
+    tit = pipeline.prefetch_to_device(iter(pipeline.BatchSampler(
+        ds, 4, seed=3, num_classes=5)), device="cpu")
     for _ in range(3):
         jb, tb = next(jit), next(tit)
         for k in ("image", "label"):
