@@ -75,6 +75,15 @@ Phases (any failure ends the run non-zero):
    sampler stream (losses and final states bitwise equal); an
    ``out_dir=None`` run that writes nothing; ms/step and
    ``profiling.measure_step`` of the host-sampler steps with both feeds.
+11. quality: the seed-sweep twin (``mcmda_tpu_torch/scripts/seed_sweep.py``)
+   at full width on 2 volumes of 16 slices, 20 source and 2 x 40 adapt
+   steps, a probe every 10 (artifact keys against the reference's
+   ``results/mri2ct_seed_sweep_r5.json``, a ``--first-seed 1 --merge``
+   rerun bitwise equal); the synthetic-benchmark twin for mri2ct at 10 + 10
+   steps with ``run.use_pallas`` on ``evaluate``; the e2e example twin on
+   the card (its plain paths: no kernel launch).  Launches held to 1 warp +
+   15 conv + moments per training step and 19 fused convs per forward
+   batch.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -1365,7 +1374,7 @@ def synchronous_feed(iterator, size=2, device="cuda"):
 def _npz_equal(a_path, b_path, weights, torch):
     """Whether two npz checkpoints hold the same keys and, leaf for leaf,
     the same bits."""
-    a, b = weights.read_npz(a_path), weights.read_npz(b_path)
+    a, b = weights.read_checkpoint(a_path), weights.read_checkpoint(b_path)
     return set(a) == set(b) and all(
         a[k].dtype == b[k].dtype
         and torch.equal(torch.from_numpy(a[k]), torch.from_numpy(b[k]))
@@ -1377,6 +1386,27 @@ def _states_equal(a, b, weights, torch):
     return set(fa) == set(fb) and all(
         torch.equal(torch.from_numpy(fa[k]), torch.from_numpy(fb[k]))
         for k in fa)
+
+
+def counted_run(torch, kernels, total, label, fn, want):
+    """Run ``fn`` with the launch counts of ``kernels`` (the warp, conv +
+    moments and fused conv modules) at 0; print them, add them to
+    ``total`` and hold them to ``want``.  Returns what ``fn`` returns."""
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = tuple(k.LAUNCHES for k in kernels)
+    for i, n in enumerate(got):
+        total[i] += n
+    print(f"{label}: wall {wall:.1f} s; launches warp {got[0]}, "
+          f"conv_stats {got[1]}, fused conv {got[2]}", flush=True)
+    if got != tuple(want):
+        fail(f"{label}: launches {got}, expected {tuple(want)}")
+    return out
 
 
 def phase_api(torch, wk, tk, fk, tmp, n_sites):
@@ -1405,22 +1435,8 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
     total = [0, 0, 0]
 
     def counted(label, fn, want):
-        """Run ``fn`` with the counts at 0; hold the launches (warp, conv +
-        moments, fused conv) to ``want``."""
-        torch.cuda.synchronize()
-        wk.LAUNCHES = tk.LAUNCHES = fk.LAUNCHES = 0
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = (wk.LAUNCHES, tk.LAUNCHES, fk.LAUNCHES)
-        for i, n in enumerate(got):
-            total[i] += n
-        print(f"api {label}: wall {wall:.1f} s; launches warp {got[0]}, "
-              f"conv_stats {got[1]}, fused conv {got[2]}", flush=True)
-        if got != want:
-            fail(f"api {label}: launches {got}, expected {want}")
-        return out
+        return counted_run(torch, (wk, tk, fk), total, f"api {label}", fn,
+                           want)
 
     def d(name):
         return os.path.join(tmp, "api-" + name)
@@ -1628,6 +1644,127 @@ def time_host_steps(torch, cfg, src, sv, sl, tgt_train):
                           profiling.measure_step(step, st, feed))
 
 
+# phase 11: the quality scripts at toy lengths, at full width.  The sweep
+# runs 2 seeds of QUALITY_ADAPT adapt steps from one QUALITY_SOURCE-step
+# source run, a probe every 10 steps, on 2 volumes of 16 slices; the
+# benchmark one direction through the CLI; the e2e example its plain paths.
+QUALITY_SOURCE, QUALITY_ADAPT, QUALITY_SEEDS = 20, 40, 2
+SWEEP_ARGS = ["--direction", "mri2ct", "--config", CONFIG, "--set",
+              "segmenter.train_fused=pallas", "--volumes", "2", "--depth",
+              "16", "--source-steps", str(QUALITY_SOURCE), "--adapt-steps",
+              str(QUALITY_ADAPT), "--eval-every", "10", "--device", DEVICE]
+BENCH_STEPS = 10
+BENCH_SETS = ["segmenter.train_fused=pallas", "run.use_pallas=true",
+              f"source.steps={BENCH_STEPS}", f"adapt.steps={BENCH_STEPS}",
+              "run.ckpt_every=0"]
+E2E_ARGS = ["--source-steps", "30", "--pretrain-steps", "10",
+            "--adapt-steps", "30"]
+# the reference artifact the sweep's keys are held to; the reference script
+# writes its config-policy pick (selected_cfg) since, and the port adds the
+# card and the precision pins
+SWEEP_REFERENCE = os.path.join(ROOT, "results", "mri2ct_seed_sweep_r5.json")
+SWEEP_NEWER = ({"selected_cfg", "card", "settings"},
+               {"selected_cfg", "selected_cfg_step"})
+
+
+def phase_quality(torch, wk, tk, fk, tmp, n_sites):
+    """Phase 11: the seed-sweep twin (keys against the reference artifact,
+    a ``--merge`` rerun of seed 1 bitwise), the synthetic-benchmark twin for
+    mri2ct (four commands, two tables) and the e2e example twin on the
+    card.  Returns [warp, conv + moments, fused conv] launches."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    from mcmda_tpu_torch.scripts import seed_sweep, synthetic_benchmark
+
+    total = [0, 0, 0]
+    kernels = (wk, tk, fk)
+
+    # seed sweep: 1 warp + 15 conv + moments per T1 and adapt step; the
+    # probes run the plain eval forward
+    path = os.path.join(tmp, "sweep.json")
+    steps = QUALITY_SOURCE + QUALITY_SEEDS * QUALITY_ADAPT
+    art = counted_run(torch, kernels, total, "quality seed sweep",
+                      lambda: seed_sweep.main([*SWEEP_ARGS, "--seeds",
+                                               str(QUALITY_SEEDS), "--out",
+                                               path]),
+                      (steps, 15 * steps, 0))
+    with open(SWEEP_REFERENCE) as f:
+        ref = json.load(f)
+    top, seed_keys = SWEEP_NEWER
+    rows = art["per_seed"]
+    if set(art) != set(ref) | top or any(
+            set(r) != set(ref["per_seed"][0]) | seed_keys for r in rows):
+        fail(f"seed sweep keys {sorted(art)} / {sorted(rows[0])} are not "
+             "the reference artifact's")
+    ticks = [[c["step"] for c in cv] for cv in art["curves"].values()]
+    if ticks != [list(range(10, QUALITY_ADAPT + 1, 10))] * QUALITY_SEEDS:
+        fail(f"seed sweep probe steps {ticks}")
+    values = [art["no_adapt"]] + [r[k] for r in rows for k in
+                                  ("final", "selected_cr_ent", "oracle")]
+    if not all(0.0 <= v <= 1.0 for v in values):
+        fail(f"seed sweep Dice out of range: {values}")
+    print(f"quality seed sweep: no-adapt {art['no_adapt']}, final "
+          f"{art['final']}, cr_ent {art['selected_cr_ent']}, oracle "
+          f"{art['oracle']}; card {art['card']!r}, pins {art['settings']}",
+          flush=True)
+    merged = os.path.join(tmp, "sweep-merge.json")
+    shutil.copy(path, merged)
+    again = counted_run(torch, kernels, total, "quality seed sweep --merge",
+                        lambda: seed_sweep.main([*SWEEP_ARGS, "--seeds", "1",
+                                                 "--first-seed", "1",
+                                                 "--merge", "--out",
+                                                 merged]),
+                        (QUALITY_SOURCE + QUALITY_ADAPT,
+                         15 * (QUALITY_SOURCE + QUALITY_ADAPT), 0))
+    a, b = json.loads(json.dumps(art)), json.loads(json.dumps(again))
+    same = (a["per_seed"] == b["per_seed"], a["curves"] == b["curves"])
+    print(f"quality seed sweep --merge: seed 0 kept, seed 1 rerun; rows "
+          f"equal {same[0]}, curves equal {same[1]}", flush=True)
+    if not all(same):
+        fail("the --merge rerun did not reproduce the sweep bitwise")
+
+    # synthetic benchmark, one direction: train-source, evaluate
+    # --source-only, adapt, evaluate; each evaluate runs the fused conv at
+    # every call site of the held-out 64-slice volume's 8 forward batches
+    res = os.path.join(tmp, "bench-results")
+    batches = -(-max(16, SIZE // 4) // BATCH)
+    counted_run(torch, kernels, total, "quality synthetic benchmark mri2ct",
+                lambda: synthetic_benchmark.main(
+                    ["--direction", "mri2ct", "--runs",
+                     os.path.join(tmp, "bench-runs"), "--results-dir", res,
+                     *(a for kv in BENCH_SETS for a in ("--set", kv))]),
+                (2 * BENCH_STEPS, 30 * BENCH_STEPS, 2 * n_sites * batches))
+    tables = sorted(os.listdir(res))
+    if tables != [f"torch_synthetic_mri2ct_{k}.json"
+                  for k in ("adapted", "no_adapt")]:
+        fail(f"synthetic benchmark wrote {tables}")
+    for name in tables:
+        with open(os.path.join(res, name)) as f:
+            mean = json.load(f)["mean"]
+        if not all(math.isfinite(mean[k]) for k in ("dice", "assd")):
+            fail(f"synthetic benchmark {name}: {mean}")
+
+    # the e2e example on the card: the plain paths, as the JAX package's
+    spec = importlib.util.spec_from_file_location(
+        "port_e2e", os.path.join(ROOT, "mcmda_tpu_torch", "examples",
+                                 "synthetic_e2e.py"))
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = counted_run(torch, kernels, total, "quality e2e example",
+                         lambda: e2e.main(E2E_ARGS), (0, 0, 0))
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith(("summary:", "E2E RESULT:", "quality e2e"))]
+    print("quality e2e example: " + " | ".join(lines) + f"; exit {rc}",
+          flush=True)
+    if rc not in (0, 1) or len(lines) != 3:
+        fail(f"e2e example: exit {rc}, lines {lines}")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1721,6 +1858,12 @@ def main() -> int:
         warp_launches += api_w
         conv_launches += api_c
         launches += api_f
+
+        # 11. the quality scripts at toy lengths
+        q_w, q_c, q_f = phase_quality(torch, wk, tk, fk, tmp, n_sites)
+        warp_launches += q_w
+        conv_launches += q_c
+        launches += q_f
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -13,9 +13,10 @@
 
 ``train-source`` and ``adapt`` write ``step_XXXXXXXX.npz`` checkpoints in
 the JAX package's key layout.  ``--ckpt`` takes a run directory (resolved
-through ``selection.json``, else the latest step) or a step path; only npz
-checkpoints are read.  ``--device`` (default ``cuda``) picks the device; a
-missing GPU is an error, never a quiet switch to the CPU.
+through ``selection.json``, else the latest step) or a step path, npz or
+the JAX package's orbax directories (``utils/orbax_read.py``).
+``--device`` (default ``cuda``) picks the device; a missing GPU is an
+error, never a quiet switch to the CPU.
 """
 
 from __future__ import annotations

@@ -1,0 +1,2 @@
+"""Example workflows of the port, twins of the JAX package's
+``examples/``."""

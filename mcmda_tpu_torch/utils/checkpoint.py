@@ -4,11 +4,12 @@
 A checkpoint is ``<dir>/step_XXXXXXXX.npz`` in the JAX package's flat key
 layout (``weights.flatten_state``), so the JAX package restores the port's
 checkpoints and the port resumes the JAX package's.  Orbax directories
-(``step_XXXXXXXX/``, what the JAX package writes on one device) cannot be
-read without jax: ``restore`` raises on one (``weights.read_npz``), ``prune``
-never deletes one, and ``latest_step`` raises when the newest step of a run
-directory exists only as one, so that a run never starts from step 0 beside
-newer checkpoints it cannot read.
+(``step_XXXXXXXX/``, what the JAX package writes on one device) are read
+with ``tensorstore`` (``utils/orbax_read.py``): ``restore`` and
+``latest_step`` take them as the JAX package does, and ``prune`` never
+deletes one.  Without ``tensorstore`` a directory raises, in ``restore``
+and in ``latest_step`` when it is the newest step, so that a run never
+starts from an older step, or from step 0, beside one it cannot read.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any
 import numpy as np
 
 from mcmda_tpu_torch import weights
+from mcmda_tpu_torch.utils import orbax_read
 
 
 def save(path: str, state: Any, step: int | None = None) -> str:
@@ -39,8 +41,9 @@ def save(path: str, state: Any, step: int | None = None) -> str:
 
 def restore(path: str, like: Any) -> Any:
     """Restore a state with the structure, devices and dtypes of ``like``
-    from the npz checkpoint at ``path`` (suffix optional)."""
-    return weights.unflatten_state(weights.read_npz(path), like)
+    from the checkpoint at ``path``: an npz file (suffix optional) or an
+    orbax directory."""
+    return weights.unflatten_state(weights.read_checkpoint(path, like), like)
 
 
 def _steps(ckpt_dir: str) -> list:
@@ -66,11 +69,12 @@ def prune(ckpt_dir: str, keep: int = 3, protect=(),
 
 
 def latest_step(ckpt_dir: str) -> int | None:
-    """The newest step with a checkpoint in ``ckpt_dir`` (None if none).
-    Counts ``step_N/`` orbax directories too, as the JAX package does, and
-    raises ``weights.read_npz``'s error (what the directory is, and the npz
-    conversion to run in the JAX package) when the newest step has no npz
-    file."""
+    """The newest step with a checkpoint in ``ckpt_dir`` (None if none):
+    an npz file or a ``step_N/`` orbax directory, as the JAX package counts
+    them (an in-flight ``.orbax-checkpoint-tmp`` save is none).  Raises the
+    reader's error (what the directory is, and the npz conversion to run in
+    the JAX package) when the newest step is a directory that cannot be
+    read here."""
     if not os.path.isdir(ckpt_dir):
         return None
     steps = _steps(ckpt_dir)
@@ -78,5 +82,6 @@ def latest_step(ckpt_dir: str) -> int | None:
              if (m := re.match(r"step_(\d+)$", n))
              and os.path.isdir(os.path.join(ckpt_dir, n))]
     if orbax and max(orbax) > (steps[-1] if steps else -1):
-        weights.read_npz(os.path.join(ckpt_dir, f"step_{max(orbax):08d}"))
+        orbax_read.require(os.path.join(ckpt_dir, f"step_{max(orbax):08d}"))
+        return max(orbax)
     return steps[-1] if steps else None

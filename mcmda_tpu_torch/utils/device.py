@@ -37,3 +37,18 @@ def settings() -> dict:
     return {"tf32": bool(torch.backends.cudnn.allow_tf32
                          or torch.backends.cuda.matmul.allow_tf32),
             "cudnn_deterministic": bool(torch.backends.cudnn.deterministic)}
+
+
+def card() -> str | None:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, for a
+    script to record beside its numbers; None without ``nvidia-smi``."""
+    import subprocess
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else None

@@ -1,5 +1,6 @@
 """Structured metrics + console logging (copy of
-``mcmda_tpu/utils/logging.py``, single process).
+``mcmda_tpu/utils/logging.py``).  In a ``torch.distributed`` group only
+rank 0 writes files and echoes, as process 0 does in the JAX package.
 
 Writes JSONL (one record per log step: {"step": n, "wall": t, **scalars}) which
 TensorBoard-compatible tooling or plain pandas can consume, plus concise
@@ -14,10 +15,16 @@ import sys
 import time
 from typing import IO, Mapping
 
+import torch.distributed as dist
+
 
 class MetricsLogger:
     def __init__(self, path: str | None = None, echo: bool = True,
                  stream: IO | None = None, tensorboard_dir: str | None = None):
+        # multi-process: only rank 0 writes files / echoes
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_rank() != 0:
+            path, tensorboard_dir, echo = None, None, False
         self.path = path
         self.echo = echo
         self.stream = stream or sys.stdout

@@ -15,7 +15,9 @@ keys ``jax.tree_util.keystr`` gives the JAX state, e.g.
 ``.opt_state[0].mu['rm1']['b0']['conv1']['w']``, so each package restores
 the other's npz checkpoints.
 
-Orbax checkpoint directories cannot be read without ``jax`` and raise.
+``read_checkpoint`` also reads the JAX package's orbax checkpoint
+directories (``utils/orbax_read.py``, with ``tensorstore``); without
+``tensorstore`` a directory raises, naming the one-line npz conversion.
 """
 
 from __future__ import annotations
@@ -30,20 +32,19 @@ import torch
 
 from mcmda_tpu_torch.config import ExperimentConfig
 from mcmda_tpu_torch.models import segmenter
+from mcmda_tpu_torch.utils import orbax_read
 from mcmda_tpu_torch.utils.tree import tree_map
 
 _NAME = re.compile(r"\['([^'\]]*)'\]")
 
 
-def read_npz(path: str) -> dict:
-    """The flat ``{keystr: array}`` dict of an npz checkpoint; ``path`` may
-    omit the ``.npz`` suffix, as the JAX package's step paths do."""
+def read_checkpoint(path: str, like=None) -> dict:
+    """The flat ``{keystr: array}`` dict of a checkpoint: an orbax
+    directory (read by ``utils/orbax_read.py``; ``like``, a state, names
+    its leaves and limits the read to them) or an npz file (``path`` may
+    omit the ``.npz`` suffix, as the JAX package's step paths do)."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is an orbax checkpoint directory, which cannot be read "
-            "without jax.  Re-save it as npz from the JAX package: "
-            "numpy.savez(path + '.npz', "
-            "**mcmda_tpu.utils.checkpoint._flatten(state))")
+        return orbax_read.read(path, None if like is None else leaf_keys(like))
     npz = path if path.endswith(".npz") else path + ".npz"
     with np.load(npz) as z:
         return {k: z[k] for k in z.files}
@@ -69,27 +70,38 @@ def subtree(flat: dict, field: str) -> dict | None:
     return tree if found else None
 
 
-def _walk(node, key: str, out: dict) -> None:
-    """Leaves of ``node`` under ``jax.tree_util.keystr`` names: dataclass
-    fields and NamedTuple fields as ``.name``, tuple items as ``[i]``, dict
-    items as ``['k']``; None holds no leaf."""
+def _to_numpy(leaf):
+    return (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf))
+
+
+def _walk(node, key: str, out: dict, leaf=_to_numpy) -> None:
+    """``leaf`` of each leaf of ``node`` under its ``jax.tree_util.keystr``
+    name: dataclass fields and NamedTuple fields as ``.name``, tuple items
+    as ``[i]``, dict items as ``['k']``; None holds no leaf."""
     if node is None:
         return
     if dataclasses.is_dataclass(node):
         for f in dataclasses.fields(node):
-            _walk(getattr(node, f.name), f"{key}.{f.name}", out)
+            _walk(getattr(node, f.name), f"{key}.{f.name}", out, leaf)
     elif isinstance(node, tuple) and hasattr(node, "_fields"):
         for name in node._fields:
-            _walk(getattr(node, name), f"{key}.{name}", out)
+            _walk(getattr(node, name), f"{key}.{name}", out, leaf)
     elif isinstance(node, (tuple, list)):
         for i, child in enumerate(node):
-            _walk(child, f"{key}[{i}]", out)
+            _walk(child, f"{key}[{i}]", out, leaf)
     elif isinstance(node, dict):
         for name, child in node.items():
-            _walk(child, f"{key}['{name}']", out)
+            _walk(child, f"{key}['{name}']", out, leaf)
     else:
-        out[key] = (node.detach().cpu().numpy()
-                    if isinstance(node, torch.Tensor) else np.asarray(node))
+        out[key] = leaf(node)
+
+
+def leaf_keys(state) -> list:
+    """The keystr names of ``state``'s leaves, without reading them."""
+    out: dict = {}
+    _walk(state, "", out, leaf=lambda _: None)
+    return list(out)
 
 
 def flatten(tree: dict, field: str) -> dict:
@@ -165,7 +177,7 @@ def _field(flat, field, like, device):
 
 def restore_source(path: str, cfg: ExperimentConfig, device):
     """(params, bn_state) of a source-training checkpoint."""
-    flat = read_npz(path)
+    flat = read_checkpoint(path)
     params, state = segmenter.init(cfg.segmenter, device="meta")
     return (_field(flat, "params", params, device),
             _field(flat, "bn_state", state, device))
@@ -175,7 +187,7 @@ def restore_adapt(path: str, cfg: ExperimentConfig, device) -> dict:
     """The serving fields of an adaptation checkpoint: ``src_params``,
     ``src_bn``, ``dam_params``, ``tgt_bn``, and the weight-average trees
     ``avg_dam``, ``avg_bn``, ``ema_w`` (None when the run kept none)."""
-    flat = read_npz(path)
+    flat = read_checkpoint(path)
     params, state = segmenter.init(cfg.segmenter, device="meta")
     dam, _ = segmenter.dam_split(params, cfg.segmenter, cfg.adapt.plug_depth)
     out = {"src_params": _field(flat, "src_params", params, device),

@@ -312,8 +312,8 @@ def test_api_and_cli_write_the_same_checkpoints(api_and_cli_runs, phase,
                              if n.endswith(".npz"))
     assert f"step_{last:08d}.npz" in a_ckpts
     for name in a_ckpts:  # the final one, the kept ones, the selected one
-        a = weights.read_npz(os.path.join(a_dir, name))
-        c = weights.read_npz(os.path.join(c_dir, name))
+        a = weights.read_checkpoint(os.path.join(a_dir, name))
+        c = weights.read_checkpoint(os.path.join(c_dir, name))
         assert set(a) == set(c)
         for k in a:
             assert a[k].dtype == c[k].dtype

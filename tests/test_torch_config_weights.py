@@ -175,14 +175,23 @@ def test_shape_mismatch_raises(tmp_path):
         weights.restore_source(str(tmp_path / "s.npz"), wider, "cpu")
 
 
-def test_orbax_directory_raises(tmp_path):
+@pytest.mark.parametrize("reader", ["tensorstore", "hidden"])
+def test_orbax_directory_raises(tmp_path, monkeypatch, reader):
+    """A run directory whose newest step is an unfinished orbax directory
+    (no ``_METADATA``): with the reader, ``--ckpt`` resolves it and its
+    restore raises; without ``tensorstore`` ``--ckpt`` refuses it as
+    ``--out``'s resume does (checkpoint.latest_step), and so does a restore
+    of the step path itself."""
     (tmp_path / "run" / "step_00000007").mkdir(parents=True)
     cfg, t_cfg = _cfgs()
-    # a run directory whose newest step is an orbax directory: --ckpt
-    # refuses it as --out's resume does (checkpoint.latest_step), and so
-    # does a restore of the step path itself
-    with pytest.raises(ValueError, match="orbax"):
-        tcli._resolve_ckpt(str(tmp_path / "run"))
+    if reader == "hidden":
+        monkeypatch.setitem(sys.modules, "tensorstore", None)
+        with pytest.raises(ValueError, match="orbax"):
+            tcli._resolve_ckpt(str(tmp_path / "run"))
+    else:
+        pytest.importorskip("tensorstore")
+        assert tcli._resolve_ckpt(str(tmp_path / "run")) == \
+            str(tmp_path / "run" / "step_00000007")
     with pytest.raises(ValueError, match="orbax"):
         weights.restore_source(str(tmp_path / "run" / "step_00000007"),
                                t_cfg, "cpu")

@@ -7,11 +7,13 @@ Held against the JAX package where it has the same function:
 calls on f32 arrays).  The rest is held to its contract: the drivers return
 the plain step and feed on one device and raise for data parallelism; the
 prefetching feed yields every batch once, in order; a run directory whose
-newest step is an orbax directory is refused, never restarted from step 0;
-every entry point reaches the device helper.
+newest step is an orbax directory resumes from it where ``tensorstore``
+reads it and is refused where it cannot, never restarted from an older
+step or step 0; every entry point reaches the device helper.
 """
 
 import os
+import sys
 import time
 import types
 
@@ -274,12 +276,46 @@ def _state(tiny_config):
     return source.init_state(0, _port_cfg(tiny_config), "cpu")
 
 
-def test_newest_step_as_orbax_directory_raises(tiny_config, tmp_path):
-    """A JAX run directory whose newest step is an orbax directory must not
-    resume from an older step, nor from step 0."""
+def _reader(monkeypatch, reader):
+    """"tensorstore": the orbax reader reads; "hidden": it cannot."""
+    if reader == "hidden":
+        monkeypatch.setitem(sys.modules, "tensorstore", None)
+    else:
+        pytest.importorskip("tensorstore")
+
+
+def _jax_orbax_step(tiny_config, run_dir, step):
+    """A JAX ``SourceState`` saved by the JAX package as an orbax
+    directory (what its single-device runs write)."""
+    import jax
+    from mcmda_tpu.train import source as jsource
+    from mcmda_tpu.utils import checkpoint as jckpt
+    js = jsource.init_state(jax.random.key(3), tiny_config)
+    jckpt.save(run_dir, js.replace(step=np.int32(step)), step=step,
+               block=True)
+    return js
+
+
+@pytest.mark.parametrize("reader", ["tensorstore", "hidden"])
+def test_newest_step_as_orbax_directory_raises(tiny_config, tmp_path,
+                                               monkeypatch, reader):
+    """A JAX run directory whose newest step is an orbax directory never
+    resumes from an older step, nor from step 0: it resumes from that
+    directory where the reader can read it, and raises where it cannot."""
     state = _state(tiny_config)
     checkpoint.save(str(tmp_path), state, step=10)
-    (tmp_path / "step_00000020").mkdir()
+    js = _jax_orbax_step(tiny_config, str(tmp_path), 20)
+    _reader(monkeypatch, reader)
+    if reader == "tensorstore":
+        assert checkpoint.latest_step(str(tmp_path)) == 20
+        resumed, start = loop.maybe_resume(str(tmp_path), state)
+        assert start == 20 and int(resumed.step) == 20
+        assert np.array_equal(resumed.params["head"]["w"].numpy(),
+                              np.asarray(js.params["head"]["w"]))
+        assert tcli._resolve_ckpt(str(tmp_path)).endswith("step_00000020")
+        os.remove(tmp_path / "step_00000010.npz")
+        assert loop.maybe_resume(str(tmp_path), state)[1] == 20
+        return
     for call in (lambda: checkpoint.latest_step(str(tmp_path)),
                  lambda: loop.maybe_resume(str(tmp_path), state),
                  lambda: tcli._resolve_ckpt(str(tmp_path))):
@@ -291,17 +327,23 @@ def test_newest_step_as_orbax_directory_raises(tiny_config, tmp_path):
         loop.maybe_resume(str(tmp_path), state)
 
 
-def test_older_orbax_directory_is_passed_over(tiny_config, tmp_path):
+@pytest.mark.parametrize("reader", ["tensorstore", "hidden"])
+def test_older_orbax_directory_is_passed_over(tiny_config, tmp_path,
+                                              monkeypatch, reader):
     state = _state(tiny_config)
     (tmp_path / "step_00000010").mkdir()
     checkpoint.save(str(tmp_path), state, step=10)  # both forms of step 10
     checkpoint.save(str(tmp_path), state, step=20)
     (tmp_path / "step_00000005").mkdir()
+    _reader(monkeypatch, reader)
     assert checkpoint.latest_step(str(tmp_path)) == 20
     _, start = loop.maybe_resume(str(tmp_path), state)
     assert start == 20
     assert tcli._resolve_ckpt(str(tmp_path)).endswith("step_00000020")
     assert checkpoint.latest_step(str(tmp_path / "missing")) is None
+    # an in-flight save of a newer step is no checkpoint
+    (tmp_path / "step_00000030.orbax-checkpoint-tmp-1").mkdir()
+    assert checkpoint.latest_step(str(tmp_path)) == 20
 
 
 def test_prune_leaves_orbax_directories(tiny_config, tmp_path):
@@ -314,6 +356,27 @@ def test_prune_leaves_orbax_directories(tiny_config, tmp_path):
     assert sorted(os.listdir(tmp_path)) == ["step_00000001",
                                             "step_00000004.npz"]
     assert os.listdir(tmp_path / "step_00000001") == ["manifest"]
+
+
+# ----------------------------------------- F4: the logger's rank-0 gate
+@pytest.mark.parametrize("rank", [0, 1])
+def test_only_rank_zero_logs(tmp_path, monkeypatch, capsys, rank):
+    """In an initialised process group only rank 0 writes the metrics
+    file and the event file and echoes (``mcmda_tpu/utils/logging.py``)."""
+    from mcmda_tpu_torch.utils import logging as mlog
+    dist = torch.distributed
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda: rank)
+    logger = mlog.MetricsLogger(str(tmp_path / "m" / "metrics.jsonl"),
+                                tensorboard_dir=str(tmp_path / "tb"))
+    logger.log(3, {"loss": 1.5})
+    logger.close()
+    out = capsys.readouterr().out
+    if rank == 0:
+        assert "loss=1.5" in out
+        assert sorted(os.listdir(tmp_path)) == ["m", "tb"]
+    else:
+        assert out == "" and os.listdir(tmp_path) == []
 
 
 # ------------------------------------------------ F3: the one device helper
