@@ -84,6 +84,20 @@ Phases (any failure ends the run non-zero):
    the card (its plain paths: no kernel launch).  Launches held to 1 warp +
    15 conv + moments per training step and 19 fused convs per forward
    batch.
+12. dp: data parallelism on the one card.  (a) two spawned ranks on
+   cuda:0 over gloo (NCCL refuses two ranks on one GPU), 8 slices each:
+   one T1 step and one adapt step per ``d_acc_cap`` (1.0, 0.5) at full
+   width on the kernel path, from the same state with injected draws,
+   against one process on the 16 slices (losses, ``d_acc``, parameters,
+   BN state; the ranks' states bitwise equal) and beside the one process
+   on the batch reordered (how far summation order alone moves it); the
+   ranks' step times, gloo through the host.  (b) ``train-source`` and
+   ``adapt --multihost --gloo`` through the CLI on two ranks: rank 0
+   writes the checkpoints, metrics, snapshots and ``selection.json``, rank
+   1 (a run directory of its own) nothing, both print the same metrics.
+   (c) a one-rank NCCL world: its T1 step bitwise the step without a
+   group; two NCCL ranks on cuda:0 (the error printed); ``--dp`` beyond
+   the GPUs refused.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -217,6 +231,41 @@ SPLIT_PRODUCTS = {"float32": 3, "bfloat16": 2}
 # f64 control: a conv kernel's max abs error against an f64 conv is at most
 # F64_RATIO times the plain f32 conv's (TF32 off)
 F64_RATIO = 4.0
+
+# phase 12: data parallelism.  The card's machine has one GPU, and NCCL
+# refuses two ranks of one communicator on one GPU, so (a) and (b) run two
+# ranks on cuda:0 over gloo (every all-reduce goes through the host: these
+# are not multi-GPU scaling figures) and (c) a one-rank NCCL world.  Each
+# rank of (a) steps its BATCH of the DP_RANKS * BATCH slices that one
+# process steps at once, from the same state with the same injected draws.
+# The adapt steps run the source forward in f32 (F32_SRC): d_acc, a count
+# of critic patch decisions, is held to DP_DACC_RTOL, and the shipped bf16
+# source forward rounds at other places when the batch is split.
+DP_RANKS = 2
+DP_TIMED = 3
+DP_CAPS = (1.0, 0.5)
+DP_SETS = ["segmenter.train_fused=pallas", F32_SRC]
+# the reference's own tolerances (tests/test_parallel.py): segmenter and
+# DAM parameters after one step, the critic and its optimizer state.
+# Adam's first step moves each parameter by about lr * sign(g), so where
+# |g| sits at rounding level the step moves it by up to 2 lr = 2e-3 (T1)
+# whatever the batch split: on an H100 one process moved its own T1
+# parameters that far when only the order of the batch changed (PERF.md,
+# section 6).  The T1 parameters are held to DP_PARAM_ATOL where the
+# gradient's sign is determined (|g| above twice the largest
+# DP-vs-one-process difference of g in its tensor), and the gradients,
+# read from Adam's first moment, to DP_GRAD_RTOL of the largest |g|: a
+# sync or scale fault moves them by O(1) of it, while summation order
+# moved one process's own by up to 3.5e-3 of it (BN over near-constant
+# channels, E[x^2] - E[x]^2).
+DP_PARAM_ATOL = 5e-4
+DP_CRITIC_ATOL = 2e-3
+DP_BN_ATOL = 1e-5
+DP_DACC_RTOL = 1e-5
+DP_GRAD_RTOL = 1e-2
+DP_TIMEOUT = 300
+DP_CLI_STEPS = 4
+
 
 
 def fail(msg: str) -> None:
@@ -1765,6 +1814,507 @@ def phase_quality(torch, wk, tk, fk, tmp, n_sites):
     return total
 
 
+class _Draws:
+    """``pipeline.draw_params`` replaced by a queue of injected draws while
+    the block runs."""
+
+    def __init__(self, pipeline):
+        self.pipeline, self.queue = pipeline, []
+
+    def __enter__(self):
+        self.orig = self.pipeline.draw_params
+        self.pipeline.draw_params = lambda *_a, **_k: self.queue.pop(0)
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.draw_params = self.orig
+        return False
+
+
+def _dp_case(torch):
+    """Phase 12's configs, states, batch and draws, made from SEED on the
+    card, identical in every process: {"t1": cfg, cap: adapt cfg}, the T1
+    state, {cap: adapt state}, the T1 batch, the adapt batch (source and
+    target images) and the draws of each (T1; adapt source, target)."""
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import pipeline, synthetic, volumes
+    from mcmda_tpu_torch.train import adapt, source
+
+    n = DP_RANKS * BATCH
+    cfgs = {"t1": config_mod.load_config(CONFIG, DP_SETS)}
+    for cap in DP_CAPS:
+        cfgs[cap] = config_mod.load_config(
+            CONFIG, DP_SETS + [f"adapt.d_acc_cap={cap}"])
+    s0 = source.init_state(cfgs["t1"].run.seed, cfgs["t1"], DEVICE)
+    a0 = {cap: adapt.init_state(cfgs[cap].run.seed + 2, cfgs[cap],
+                                s0.params, s0.bn_state) for cap in DP_CAPS}
+    sv, sl = synthetic.make_dataset(SEED, "mri", 1, n, SIZE)
+    tv, _ = synthetic.make_dataset(SEED, "ct", 1, n, SIZE)
+    src = volumes.volumes_to_slices(sv, sl, context=3)
+    tgt = volumes.volumes_to_slices(tv, context=3)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            DEVICE)
+
+    t1_batch = {"image": dev(src.images[:n]),
+                "label": dev(np.eye(5, dtype=np.float32)[src.labels[:n]])}
+    ad_batch = {"src_image": dev(src.images[:n]),
+                "tgt_image": dev(tgt.images[:n])}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    draws = [pipeline.draw_params(gen, cfgs["t1"].data, n, DEVICE)
+             for _ in range(3)]
+    return cfgs, s0, a0, t1_batch, ad_batch, draws
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _dp_rank(rank, out_dir, port):
+    """Phase 12 (a), one of DP_RANKS ranks on cuda:0 over gloo (a spawned
+    process): one T1 step and one adapt step per cap on its shard, then
+    DP_TIMED more of the T1 and the first adapt step timed; writes the
+    states, metrics, times and launches."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+    from mcmda_tpu_torch import weights
+    from mcmda_tpu_torch.data import pipeline
+    from mcmda_tpu_torch.kernels import train_conv as tk, warp as wk
+    from mcmda_tpu_torch.parallel import dp
+    from mcmda_tpu_torch.train import adapt, source
+    from mcmda_tpu_torch.utils import device as device_mod
+
+    device_mod.resolve(DEVICE, deterministic=True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    group = dist.group.WORLD
+    cfgs, s0, a0, t1_b, ad_b, (d_t1, d_src, d_tgt) = _dp_case(torch)
+    sl = slice(rank * BATCH, (rank + 1) * BATCH)
+    res, meta = {}, {"ms": {}, "metrics": {}}
+    wk.LAUNCHES = tk.LAUNCHES = 0
+    with _Draws(pipeline) as draws:
+        step = dp.data_parallel_step(
+            source.make_train_step(cfgs["t1"], group=group), group)
+        batch = {k: v[sl] for k, v in t1_b.items()}
+        times = []
+        for i in range(1 + DP_TIMED):
+            draws.queue.append(d_t1[sl])
+            (s1, m), ms = _timed(torch, lambda: step(s0, batch, 0))
+            times.append(ms)
+            if i == 0:
+                res.update({f"t1/{k}": v for k, v in
+                            weights.flatten_state(s1).items()})
+                meta["metrics"]["t1"] = {k: float(v) for k, v in m.items()}
+        meta["ms"]["t1"] = times
+        batch = {k: v[sl] for k, v in ad_b.items()}
+        for cap in DP_CAPS:
+            step = dp.data_parallel_step(
+                adapt.make_adapt_step(cfgs[cap], group=group), group)
+            times = []
+            for i in range(1 + (DP_TIMED if cap == DP_CAPS[0] else 0)):
+                draws.queue.append(torch.cat([d_src[sl], d_tgt[sl]]))
+                (a1, m), ms = _timed(torch, lambda: step(a0[cap], batch, 0))
+                times.append(ms)
+                if i == 0:
+                    res.update({f"{cap}/{k}": v for k, v in
+                                weights.flatten_state(a1).items()})
+                    meta["metrics"][str(cap)] = {k: float(v)
+                                                 for k, v in m.items()}
+            meta["ms"][str(cap)] = times
+    meta["launches"] = [wk.LAUNCHES, tk.LAUNCHES]
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    dist.destroy_process_group()
+
+
+def _cli_rank(rank, argvs, port, out_dir):
+    """Phase 12 (b), one rank of the CLI with --multihost over gloo (a
+    spawned process): writes its exit code, standard output and kernel
+    launches."""
+    sys.path.insert(0, ROOT)
+    import contextlib
+    import io
+    from mcmda_tpu_torch import cli
+    from mcmda_tpu_torch.kernels import train_conv as tk, warp as wk
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main([*argvs[rank], "--multihost", "--coordinator",
+                       f"127.0.0.1:{port}", "--num-processes",
+                       str(DP_RANKS), "--process-id", str(rank), "--gloo"])
+    with open(os.path.join(out_dir, f"cli{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "log": log.getvalue(),
+                   "launches": [wk.LAUNCHES, tk.LAUNCHES]}, f)
+
+
+def _nccl_pair_rank(rank, out_dir, port):
+    """Phase 12 (c): one of two NCCL ranks on cuda:0, which NCCL is
+    expected to refuse; writes what the first all-reduce did."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=2, rank=rank)
+        v = torch.ones(1, device=DEVICE)
+        dist.all_reduce(v)
+        torch.cuda.synchronize()
+        out = f"ran: all-reduce gave {v.item()}"
+    except Exception as e:  # the error is the observation
+        out = f"{type(e).__name__}: {e}"
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(out)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(fn, args, label, timeout=DP_TIMEOUT):
+    """Run ``fn(rank, *args)`` in DP_RANKS spawned processes; fails the
+    smoke if one fails or they outlast ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=DP_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"{label}: ranks still running after {timeout} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        fail(f"{label}: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def _max_diff(got, want, prefixes):
+    keys = [k for k in want if k.startswith(prefixes)]
+    if not keys:
+        fail(f"no state under {prefixes}")
+    return max(float(np.abs(got[k] - want[k]).max()) for k in keys)
+
+
+def _mu_rel(got, want, prefix):
+    """Largest |mu difference| over the largest |mu| (Adam's first moment
+    after one step is (1 - beta1) times the gradient); 0 where both are 0
+    (a throttled critic)."""
+    keys = [k for k in want if k.startswith(prefix)]
+    top = max(float(np.abs(want[k]).max()) for k in keys)
+    diff = _max_diff(got, want, (prefix,))
+    return diff / top if top else diff
+
+
+def _sure_diff(got, want, params, mu):
+    """(largest |parameter difference| where the gradient's sign is
+    determined, the share of parameters where it is not): determined where
+    the one-process |mu| exceeds twice the largest |mu| difference of its
+    tensor (``mu`` names Adam's first moment of the ``params`` tree)."""
+    worst, undetermined, total = 0.0, 0, 0
+    for k in [k for k in want if k.startswith(params)]:
+        m = k.replace(params, mu, 1)
+        sure = np.abs(want[m]) > 2 * np.abs(got[m] - want[m]).max()
+        if sure.any():
+            worst = max(worst, float(np.abs(got[k] - want[k])[sure].max()))
+        undetermined += int((~sure).sum())
+        total += sure.size
+    return worst, undetermined / total
+
+
+def _dp_check(label, got, want, rel_keys, limits, grads=(), sure=()):
+    """Hold a DP rank's results to the one-process results: each metric in
+    ``rel_keys`` within its relative limit, each state prefix group within
+    its absolute limit, each Adam first moment in ``grads`` within
+    DP_GRAD_RTOL of its largest value, each (parameters, first moment) pair
+    in ``sure`` within DP_PARAM_ATOL where the gradient's sign is
+    determined; prints the readings."""
+    out = []
+    for mu in grads:
+        rel = _mu_rel(got["state"], want["state"], mu)
+        out.append(f"grads {mu.split('/')[1]} max |diff| / max |g| "
+                   f"{rel:.2e} (limit {DP_GRAD_RTOL})")
+        if rel > DP_GRAD_RTOL:
+            fail(f"{label}: gradient {mu} rel {rel} > {DP_GRAD_RTOL}")
+    for params, mu in sure:
+        d, share = _sure_diff(got["state"], want["state"], params, mu)
+        out.append(f"{params} max |diff| where the gradient's sign is "
+                   f"determined {d:.2e} (limit {DP_PARAM_ATOL}; "
+                   f"undetermined share {share:.2e})")
+        if d > DP_PARAM_ATOL:
+            fail(f"{label}: {params} max |diff| {d} > {DP_PARAM_ATOL}")
+    for key, lim in rel_keys:
+        a, b = got["metrics"][key[0]][key[1]], want["metrics"][key[0]][
+            key[1]]
+        rel = abs(a - b) / max(abs(b), 1e-30)
+        out.append(f"{key[1]} {a!r} vs {b!r} (rel {rel:.2e}, limit {lim})")
+        if rel > lim:
+            fail(f"{label}: {key[1]} rel {rel} > {lim}")
+    for prefixes, lim in limits:
+        d = _max_diff(got["state"], want["state"], prefixes)
+        out.append(f"{'/'.join(prefixes)} max |diff| {d:.2e} (limit {lim})")
+        if d > lim:
+            fail(f"{label}: {prefixes} max |diff| {d} > {lim}")
+    return "; ".join(out)
+
+
+def phase_dp(torch, wk, tk, tmp):
+    """Phase 12: data parallelism on the card.  (a) 2 ranks on cuda:0 over
+    gloo, one T1 step and one adapt step per cap, against one process on
+    the batch of 16; (b) train-source and adapt --multihost through the
+    CLI on 2 ranks over gloo; (c) a one-rank NCCL world's T1 step against
+    the step without a group, two NCCL ranks on one GPU, and --dp beyond
+    the devices.  Returns [warp, conv + moments] launches of the phase."""
+    import torch.distributed as dist
+    from mcmda_tpu_torch import cli, weights
+    from mcmda_tpu_torch.data import pipeline
+    from mcmda_tpu_torch.parallel import dp
+    from mcmda_tpu_torch.train import adapt, source
+    from mcmda_tpu_torch.utils import device as device_mod
+
+    launches = [0, 0]
+    # deterministic cuDNN, as in the ranks: (c) compares two steps bitwise
+    device_mod.resolve(DEVICE, deterministic=True)
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "dp")
+    os.makedirs(out)
+
+    # (a) two ranks over gloo against one process
+    t0 = time.perf_counter()
+    _spawn(_dp_rank, (out, _free_port()), "dp 2-rank steps")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            meta = json.load(f)
+        meta["state"] = dict(np.load(os.path.join(out, f"rank{r}.npz")))
+        ranks.append(meta)
+        launches[0] += meta["launches"][0]
+        launches[1] += meta["launches"][1]
+        want = [(1 + DP_TIMED) * 1 + (1 + DP_TIMED + 1) * 1,
+                (1 + DP_TIMED) * 15 + (1 + DP_TIMED + 1) * 30]
+        if meta["launches"] != want:
+            fail(f"dp rank {r}: launches {meta['launches']}, expected {want}")
+    for k in ranks[0]["state"]:
+        if not np.array_equal(ranks[0]["state"][k], ranks[1]["state"][k]):
+            fail(f"dp ranks differ after the step: {k}")
+    cfgs, s0, a0, t1_b, ad_b, (d_t1, d_src, d_tgt) = _dp_case(torch)
+    one = {"state": {}, "metrics": {}, "ms": {}}
+    wk.LAUNCHES = tk.LAUNCHES = 0
+    with _Draws(pipeline) as draws:
+        step = source.make_train_step(cfgs["t1"])
+        times = []
+        for i in range(1 + DP_TIMED):
+            draws.queue.append(d_t1)
+            (s1, m), ms = _timed(torch, lambda: step(s0, t1_b, 0))
+            times.append(ms)
+        one["ms"]["t1"] = times
+        one["state"].update({f"t1/{k}": v for k, v in
+                             weights.flatten_state(s1).items()})
+        one["metrics"]["t1"] = {k: float(v) for k, v in m.items()}
+        for cap in DP_CAPS:
+            draws.queue.append(torch.cat([d_src, d_tgt]))
+            a1, m = adapt.make_adapt_step(cfgs[cap])(a0[cap], ad_b, 0)
+            one["state"].update({f"{cap}/{k}": v for k, v in
+                                 weights.flatten_state(a1).items()})
+            one["metrics"][str(cap)] = {k: float(v) for k, v in m.items()}
+        # the same step with the shards in the other order: how far one
+        # process moves from itself when only the summation order changes
+        rot = torch.cat([torch.arange(BATCH, 2 * BATCH),
+                         torch.arange(BATCH)]).to(DEVICE)
+        draws.queue.append(d_t1[rot])
+        s1r, m = source.make_train_step(cfgs["t1"])(
+            s0, {k: v[rot] for k, v in t1_b.items()}, 0)
+        cap = DP_CAPS[0]
+        draws.queue.append(torch.cat([d_src[rot], d_tgt[rot]]))
+        a1r, am = adapt.make_adapt_step(cfgs[cap])(
+            a0[cap], {k: v[rot] for k, v in ad_b.items()}, 0)
+        reord = {"state": {
+            **{f"t1/{k}": v for k, v in weights.flatten_state(s1r).items()},
+            **{f"{cap}/{k}": v for k, v in
+               weights.flatten_state(a1r).items()}},
+            "metrics": {"t1": {k: float(v) for k, v in m.items()},
+                        str(cap): {k: float(v) for k, v in am.items()}}}
+    launches[0] += wk.LAUNCHES
+    launches[1] += tk.LAUNCHES
+    got = ranks[0]
+    c0 = str(cap)
+    print("dp (a) the one process against itself with the batch "
+          "reordered (summation order alone): T1 loss "
+          f"{reord['metrics']['t1']['loss']!r}; params max |diff| "
+          f"{_max_diff(reord['state'], one['state'], ('t1/.params',)):.2e}"
+          "; BN "
+          f"{_max_diff(reord['state'], one['state'], ('t1/.bn_state',)):.2e}"
+          "; grads max |diff| / max |g| "
+          f"{_mu_rel(reord['state'], one['state'], 't1/.opt_state[0].mu'):.2e}"
+          f"; adapt d_acc {reord['metrics'][c0]['d_acc']!r}, DAM "
+          f"{_max_diff(reord['state'], one['state'], (f'{c0}/.dam_params',)):.2e}"
+          ", grads DAM "
+          f"{_mu_rel(reord['state'], one['state'], f'{c0}/.opt_g_state[0].mu'):.2e}"
+          ", critic "
+          f"{_mu_rel(reord['state'], one['state'], f'{c0}/.opt_d_state[0].mu'):.2e}",
+          flush=True)
+    print("dp (a) T1, 2 ranks x 8 on cuda:0 over gloo vs one process x "
+          "16: " + _dp_check(
+              "dp T1", got, one, [(("t1", "loss"), STEP1_RTOL)],
+              [(("t1/.bn_state",), DP_BN_ATOL)],
+              grads=("t1/.opt_state[0].mu",),
+              sure=(("t1/.params", "t1/.opt_state[0].mu"),))
+          + "; ranks bitwise equal", flush=True)
+    for cap in DP_CAPS:
+        c = str(cap)
+        rel = [((c, "d_acc"), DP_DACC_RTOL), ((c, "d_loss"), STEP1_RTOL),
+               ((c, "g_loss"), STEP1_RTOL)]
+        print(f"dp (a) adapt, d_acc_cap {cap} (critic step "
+              f"{'taken' if one['metrics'][c]['d_acc'] <= cap else 'held'}"
+              "): " + _dp_check(
+                  f"dp adapt cap {cap}", got, one, rel,
+                  [((f"{c}/.dam_params",), DP_PARAM_ATOL),
+                   ((f"{c}/.critic_params", f"{c}/.opt_d_state"),
+                    DP_CRITIC_ATOL),
+                   ((f"{c}/.tgt_bn",), DP_BN_ATOL)],
+                  grads=(f"{c}/.opt_g_state[0].mu",
+                         f"{c}/.opt_d_state[0].mu"))
+              + "; ranks bitwise equal", flush=True)
+    card = device_mod.card()
+    med = {k: [statistics.median(r["ms"][k][1:]) for r in ranks]
+           for k in ("t1", str(DP_CAPS[0]))}
+    print(f"dp (a) step ms on {card}, gloo through the host on one card "
+          f"(not multi-GPU scaling), median of {DP_TIMED} after the first: "
+          f"T1 ranks {med['t1']}, adapt ranks {med[str(DP_CAPS[0])]}; one "
+          f"process at batch 16: T1 "
+          f"{statistics.median(one['ms']['t1'][1:]):.2f}; spawn to exit "
+          f"{wall:.1f} s", flush=True)
+
+    # (b) the CLI across two processes
+    runs = {}
+    for cmd in ("train-source", "adapt"):
+        outs = [os.path.join(out, f"{cmd}{r}") for r in range(DP_RANKS)]
+        argvs = []
+        for r in range(DP_RANKS):
+            argv = [cmd, "--config", CONFIG, "--synthetic",
+                    "--synthetic-volumes", "2", "--device", DEVICE,
+                    "--out", outs[r]]
+            if cmd == "adapt":
+                argv += ["--source-ckpt", runs["train-source"][0]]
+            for kv in (f"source.steps={DP_CLI_STEPS}",
+                       f"adapt.steps={DP_CLI_STEPS}",
+                       "adapt.pretrain_steps=0", "run.ckpt_every=2",
+                       "run.log_every=1", "segmenter.train_fused=pallas"):
+                argv += ["--set", kv]
+            argvs.append(argv)
+        t0 = time.perf_counter()
+        _spawn(_cli_rank, (argvs, _free_port(), out), f"dp cli {cmd}")
+        wall = time.perf_counter() - t0
+        logs = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"cli{r}.json")) as f:
+                rec = json.load(f)
+            if rec["rc"] != 0:
+                fail(f"dp cli {cmd} rank {r}: exit {rec['rc']}")
+            if rec["launches"] != [DP_CLI_STEPS, 15 * DP_CLI_STEPS]:
+                fail(f"dp cli {cmd} rank {r}: launches {rec['launches']}")
+            launches[0] += rec["launches"][0]
+            launches[1] += rec["launches"][1]
+            done = [ln for ln in rec["log"].splitlines()
+                    if ln.startswith(f"done (rank {r} of {DP_RANKS})")]
+            if len(done) != 1 or "(per-rank sharded)" not in rec["log"]:
+                fail(f"dp cli {cmd} rank {r}: {rec['log'][-1500:]}")
+            logs.append(done[0].split("last logged ", 1)[1])
+        if logs[0] != logs[1]:
+            fail(f"dp cli {cmd}: ranks printed {logs}")
+        if os.path.exists(outs[1]):
+            fail(f"dp cli {cmd}: rank 1 wrote {os.listdir(outs[1])}")
+        names = sorted(os.listdir(outs[0]))
+        with open(os.path.join(outs[0], "metrics.jsonl")) as f:
+            sigs = [(r["step"], frozenset(r)) for r in map(json.loads, f)]
+        want = {"step_00000002.npz", f"step_{DP_CLI_STEPS:08d}.npz",
+                "metrics.jsonl"}
+        if cmd == "adapt":
+            with open(os.path.join(outs[0], "selection.json")) as f:
+                best = json.load(f)["best_step"]
+            want |= {"selection.json", "snapshots", f"step_{best:08d}.npz"}
+        if not want <= set(names) or len(sigs) != len(set(sigs)):
+            fail(f"dp cli {cmd}: rank 0 wrote {names}, {len(sigs)} metric "
+                 f"lines, {len(set(sigs))} distinct")
+        runs[cmd] = outs
+        print(f"dp (b) {cmd} --multihost, 2 ranks on cuda:0 over gloo, "
+              f"{DP_CLI_STEPS} steps: wall {wall:.1f} s; launches per rank "
+              f"warp {DP_CLI_STEPS}, conv_stats {15 * DP_CLI_STEPS}; rank 0 "
+              f"wrote {names}; rank 1 wrote nothing; both ranks: last "
+              f"logged {logs[0]}", flush=True)
+
+    # (c) NCCL: one rank, two ranks on one GPU, --dp beyond the devices
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        v = torch.arange(4.0, device=DEVICE)
+        dist.all_reduce(v)
+        torch.cuda.synchronize()
+        if dist.get_backend() != "nccl" or \
+                not torch.equal(v, torch.arange(4.0, device=DEVICE)):
+            fail(f"nccl one-rank all-reduce: {dist.get_backend()} {v}")
+        batch = {k: t[:BATCH] for k, t in t1_b.items()}
+        wk.LAUNCHES = tk.LAUNCHES = 0
+        with _Draws(pipeline) as draws:
+            draws.queue += [d_t1[:BATCH], d_t1[:BATCH]]
+            ref, rm = source.make_train_step(cfgs["t1"])(s0, batch, 0)
+            step = dp.data_parallel_step(
+                source.make_train_step(cfgs["t1"], group=group), group)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                got, gm = step(s0, batch, 0)
+                torch.cuda.synchronize()
+        launches[0] += wk.LAUNCHES
+        launches[1] += tk.LAUNCHES
+        nccl = sorted({e.key for e in prof.key_averages()
+                       if "nccl" in e.key.lower()})
+        a, b = weights.flatten_state(got), weights.flatten_state(ref)
+        same = [k for k in a if np.array_equal(a[k], b[k])]
+        print(f"dp (c) one-rank NCCL world: backend {dist.get_backend()}; "
+              f"T1 step loss {float(gm['loss'])!r} vs without a group "
+              f"{float(rm['loss'])!r}; {len(same)} of {len(a)} state "
+              f"tensors bitwise equal; NCCL events in the step's profile: "
+              f"{nccl}", flush=True)
+        if float(gm["loss"]) != float(rm["loss"]) or len(same) != len(a):
+            fail("one-rank NCCL T1 step differs from the step without a "
+                 "group")
+    finally:
+        dist.destroy_process_group()
+    _spawn(_nccl_pair_rank, (out, _free_port()), "nccl pair", timeout=120)
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f"nccl{r}.txt")) as f:
+            print(f"dp (c) two NCCL ranks on cuda:0, rank {r}: "
+                  f"{f.read()[:400]}", flush=True)
+    n = max(2, torch.cuda.device_count() + 1)
+    try:
+        cli.main(["train-source", "--config", CONFIG, "--synthetic",
+                  "--out", os.path.join(out, "refused"), "--device",
+                  DEVICE, "--dp", str(n)])
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        fail(f"--dp {n} on {torch.cuda.device_count()} GPU(s) ran")
+    print(f"dp (c) --dp {n}: {msg}", flush=True)
+    if "more ranks than devices" not in msg:
+        fail(f"--dp {n}: {msg}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1864,6 +2414,11 @@ def main() -> int:
         warp_launches += q_w
         conv_launches += q_c
         launches += q_f
+
+        # 12. data parallelism: 2 ranks over gloo, the CLI, NCCL
+        dp_w, dp_c = phase_dp(torch, wk, tk, tmp)
+        warp_launches += dp_w
+        conv_launches += dp_c
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

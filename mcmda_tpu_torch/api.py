@@ -14,6 +14,13 @@ For users who drive the framework from Python::
 error); the other calls run where the state they are given lives.  The CLI
 builds its steps, feeds and eval forwards with the same helpers, so a seeded
 CLI run and a seeded API run write the same checkpoints.
+
+Data parallelism runs one process per device: ``train_source(..., dp=N)``
+and ``adapt(..., dp=N)`` are called by each of the N ranks of an
+initialised ``torch.distributed`` group (``python -m mcmda_tpu_torch ...
+--dp N`` starts them, and so does ``torchrun``; ``parallel/multihost``
+joins them).  In a world of several processes ``dp=0`` is data parallel
+over all of them.  Every rank returns the same state; only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -50,13 +57,15 @@ _ON_DEVICE_BYTES = 1 << 30
 
 def _source_step_feed(cfg, ds, dp, device):
     """(step, feed, device-resident?) of source training over the slice
-    dataset ``ds``: the one place the cutoff picks the feed."""
+    dataset ``ds`` (this rank's shard of it under data parallelism): the one
+    place the cutoff picks the feed."""
+    ds = drivers.shard(ds, dp, device)
     on_device = ds.images.nbytes < _ON_DEVICE_BYTES
     if on_device:
         step, device_data = drivers.device_resident_dp(
             cfg, source_mod.make_train_step, dp,
-            lambda _shd: pipeline.to_device_arrays(ds, cfg.data.num_classes,
-                                                   device))
+            lambda _group: pipeline.to_device_arrays(
+                ds, cfg.data.num_classes, device), device=device)
         return step, itertools.repeat(device_data), True
     step, global_batch, to_global = drivers.wrap_dp(
         cfg, source_mod.make_train_step, dp, device=device)
@@ -72,8 +81,8 @@ def train_source(cfg: ExperimentConfig, volumes: Sequence[np.ndarray],
                  device="cuda") -> source_mod.SourceState:
     """Supervised source training.  Returns the trained state.  With
     ``out_dir`` it resumes from and checkpoints into that directory;
-    without, it writes nothing.  ``dp`` > 1 (data parallelism) raises: the
-    JAX package's ``parallel/`` modules are not ported yet."""
+    without, it writes nothing.  ``dp`` > 1: data parallel over the ``dp``
+    ranks of the process group (see the module docstring)."""
     device = device_mod.resolve(device, deterministic=True)
     ds = vio.volumes_to_slices(volumes, labels,
                                context=cfg.data.context_slices,
@@ -116,7 +125,10 @@ def _select_every(cfg, n_adapt: int) -> int:
 def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device):
     """(mk_step(**kw), make_feed(), device-resident?) of adaptation: the
     pretrain and the main phase each make their step and their feed; on the
-    host-sampler path both feeds draw from one pair of sampler streams."""
+    host-sampler path both feeds draw from one pair of sampler streams.
+    Under data parallelism both datasets are this rank's shards."""
+    src_ds = drivers.shard(src_ds, dp, device)
+    tgt_ds = drivers.shard(tgt_ds, dp, device)
     on_device = (src_ds.images.nbytes
                  + tgt_ds.images.nbytes) < _ON_DEVICE_BYTES
     if on_device:
@@ -127,7 +139,7 @@ def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device):
         def mk_step(**kw):
             return drivers.device_resident_dp(
                 cfg, adapt_mod.make_adapt_step, dp,
-                lambda _shd: device_data, **kw)[0]
+                lambda _group: device_data, device=device, **kw)[0]
 
         def make_feed():
             return itertools.repeat(device_data)
@@ -155,9 +167,11 @@ def _materialize_pick(out_dir, state, select_probe, selector) -> bool:
     state with the stashed DAM / target BN of the pick (the frozen paths
     never change, and the optimizer state does not matter to evaluation).
     The stash holds the chosen weight variant, so ``ema_w`` is zeroed and a
-    later average-weights evaluation falls back to exactly those weights."""
+    later average-weights evaluation falls back to exactly those weights.
+    Only rank 0 writes."""
     stash, best = select_probe.best_stash, selector.best_step
-    if not (out_dir and stash and best is not None):
+    if not (out_dir and stash and best is not None
+            and drivers.is_primary()):
         return False
     base = os.path.join(out_dir, f"step_{best:08d}")
     if os.path.isdir(base) or os.path.exists(base + ".npz"):
@@ -181,8 +195,10 @@ def adapt(cfg: ExperimentConfig, source_state: source_mod.SourceState,
     ``source_state``.  With ``out_dir`` it resumes from and checkpoints into
     that directory, runs the class-ratio checkpoint selection
     (``selection.json``) and materializes the selected checkpoint; without,
-    it writes nothing.  ``dp`` > 1 raises (``parallel/`` is not ported
-    yet)."""
+    it writes nothing.  ``dp`` > 1: data parallel over the ``dp`` ranks of
+    the process group; every rank runs the selection probe on the same
+    state and target slices, so all make the same pick, and rank 0 writes
+    it."""
     device = device_mod.resolve(tree.leaves(source_state.params)[0].device,
                                 deterministic=True)
     src_ds = vio.volumes_to_slices(src_volumes, src_labels,
@@ -215,7 +231,8 @@ def adapt(cfg: ExperimentConfig, source_state: source_mod.SourceState,
     select_probe = adapt_mod.SelectionProbe(
         adapt_mod.make_select_bundle(cfg, probe_images,
                                      dual=cfg.adapt.dam_ema > 0),
-        primary=selector, cr_selector=selector, save_dir=out_dir)
+        primary=selector, cr_selector=selector, save_dir=out_dir,
+        save_ok=drivers.is_primary())
     state, _ = loop.run(mk_step(), state, make_feed(), n_pre + n_adapt,
                         seed=cfg.run.seed + 6, log_every=cfg.run.log_every,
                         ckpt_every=cfg.run.ckpt_every if out_dir else 0,

@@ -17,6 +17,17 @@ through ``selection.json``, else the latest step) or a step path, npz or
 the JAX package's orbax directories (``utils/orbax_read.py``).
 ``--device`` (default ``cuda``) picks the device; a missing GPU is an
 error, never a quiet switch to the CPU.
+
+``train-source`` and ``adapt`` run data parallel, one process per device:
+``--dp N`` starts N ranks on this host (rank r on ``cuda:r``, or all on the
+CPU with ``--device cpu``), ``--multihost`` makes this process one rank of
+a world named by ``--coordinator`` / ``--num-processes`` /
+``--process-id`` (or by ``torchrun``'s environment).  The collectives run
+over NCCL on a GPU and over gloo on the CPU or with ``--gloo``.  Only rank
+0 writes checkpoints, metrics, snapshots and ``selection.json``; every rank
+prints its last logged metrics.  Each rank resumes from its own ``--out``,
+so a run that resumes gives its ranks one run directory (or one
+``--from-ckpt``).
 """
 
 from __future__ import annotations
@@ -30,6 +41,18 @@ import numpy as np
 import torch
 
 from mcmda_tpu_torch import config as config_mod
+
+
+def _done(out: str, metrics: dict) -> None:
+    """The closing line, on every rank: under data parallelism each rank
+    prints the metrics it last logged (averaged over the ranks, so every
+    rank prints the same numbers)."""
+    from mcmda_tpu_torch.parallel import multihost
+    rank, world = multihost.world()
+    tag = f" (rank {rank} of {world})" if world > 1 else ""
+    body = " ".join(f"{k}={v!r}" for k, v in metrics.items())
+    print(f"done{tag}; final checkpoint in {out}; last logged {body}",
+          flush=True)
 
 
 def _resolve_ckpt(path: str) -> str:
@@ -207,7 +230,7 @@ def cmd_train_source(args):
     from mcmda_tpu_torch import api
     from mcmda_tpu_torch.data import volumes as vio
     from mcmda_tpu_torch.evaluation import report
-    from mcmda_tpu_torch.train import loop, source
+    from mcmda_tpu_torch.train import drivers, loop, source
     from mcmda_tpu_torch.utils import checkpoint, logging as mlog
 
     cfg = config_mod.load_config(args.config, args.set)
@@ -224,9 +247,10 @@ def cmd_train_source(args):
         start = int(state.step)
     else:
         state, start = loop.maybe_resume(args.out, state)
-    step_fn, feed, on_device = api._source_step_feed(cfg, ds, 0, device)
-    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
-          flush=True)
+    step_fn, feed, on_device = api._source_step_feed(cfg, ds, args.dp, device)
+    sharded = drivers.dp_group(args.dp, device) is not None
+    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}"
+          f"{' (per-rank sharded)' if sharded else ''}", flush=True)
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
     # one forward for every callback: the state enters as fwd_args
@@ -237,18 +261,20 @@ def cmd_train_source(args):
         return eval_raw(params, bn_state, img)
 
     def val_cb(step_i, st, _metrics=None):
+        if not drivers.is_primary():  # only rank 0 logs it
+            return
         agg = report.evaluate_volumes(
             val_fwd, [val_vol], [val_lab], context=cfg.data.context_slices,
             batch_size=cfg.data.batch_size,
             fwd_args=(st.params, st.bn_state), device=device)
         logger.log(step_i, {"val_dice": agg["mean"]["dice"]})
 
-    loop.run(step_fn, state, feed, cfg.source.steps, seed=cfg.run.seed,
-             log_every=cfg.run.log_every, ckpt_every=cfg.run.ckpt_every,
-             ckpt_dir=args.out, logger=logger, start_step=start,
-             callback=val_cb)
+    _, last = loop.run(step_fn, state, feed, cfg.source.steps,
+                       seed=cfg.run.seed, log_every=cfg.run.log_every,
+                       ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
+                       logger=logger, start_step=start, callback=val_cb)
     logger.close()
-    print(f"done; final checkpoint in {args.out}", flush=True)
+    _done(args.out, last)
     return 0
 
 
@@ -262,7 +288,7 @@ def cmd_adapt(args):
     from mcmda_tpu_torch import api, weights
     from mcmda_tpu_torch.data import volumes as vio
     from mcmda_tpu_torch.evaluation import snapshots
-    from mcmda_tpu_torch.train import adapt, loop
+    from mcmda_tpu_torch.train import adapt, drivers, loop
     from mcmda_tpu_torch.utils import checkpoint, logging as mlog
 
     cfg = config_mod.load_config(args.config, args.set)
@@ -285,9 +311,10 @@ def cmd_adapt(args):
     else:
         state, start = loop.maybe_resume(args.out, state)
     mk_step, make_feed, on_device = api._adapt_step_feed(cfg, src_ds, tgt_ds,
-                                                         0, device)
-    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}",
-          flush=True)
+                                                         args.dp, device)
+    sharded = drivers.dp_group(args.dp, device) is not None
+    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}"
+          f"{' (per-rank sharded)' if sharded else ''}", flush=True)
 
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
@@ -295,6 +322,8 @@ def cmd_adapt(args):
     snap_fwd = adapt.adapted_forward(cfg)
 
     def snapshot_cb(step, st, _metrics=None):
+        if not drivers.is_primary():
+            return
         with torch.no_grad():
             probs = snap_fwd(st, torch.from_numpy(
                 np.ascontiguousarray(snap_batch, np.float32)).to(device))
@@ -305,7 +334,8 @@ def cmd_adapt(args):
     # unsupervised checkpoint selection: the primary signal per
     # adapt.select_signal, the other one logged; each probe tick scores the
     # live (and, with dam_ema, the averaged) weights and is read one tick
-    # later
+    # later.  Every rank probes the same state and slices, so all make the
+    # same pick; rank 0 writes selection.json
     eq_selector = adapt.EquilibriumSelector(
         warmup_step=cfg.adapt.pretrain_steps + cfg.adapt.steps // 5)
     cr_selector = api._class_ratio_selector(cfg, src_labs)
@@ -315,7 +345,7 @@ def cmd_adapt(args):
         adapt.make_select_bundle(cfg, api._probe_images(tgt_ds),
                                  dual=cfg.adapt.dam_ema > 0),
         primary=selector, cr_selector=cr_selector, eq_selector=eq_selector,
-        logger=logger, save_dir=args.out)
+        logger=logger, save_dir=args.out, save_ok=drivers.is_primary())
 
     if cfg.adapt.pretrain_steps and start < cfg.adapt.pretrain_steps:
         state, _ = loop.run(mk_step(train_g=False), state, make_feed(),
@@ -323,15 +353,17 @@ def cmd_adapt(args):
                             log_every=cfg.run.log_every, logger=logger,
                             start_step=start)
         start = cfg.adapt.pretrain_steps
-    state, _ = loop.run(mk_step(), state, make_feed(),
-                        cfg.adapt.pretrain_steps + cfg.adapt.steps,
-                        seed=cfg.run.seed + 6, log_every=cfg.run.log_every,
-                        ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
-                        logger=logger, start_step=start,
-                        callback=snapshot_cb,
-                        probe_every=api._select_every(cfg, cfg.adapt.steps),
-                        probe=select_probe,
-                        protect_steps=select_probe.protect_steps)
+    state, last = loop.run(mk_step(), state, make_feed(),
+                           cfg.adapt.pretrain_steps + cfg.adapt.steps,
+                           seed=cfg.run.seed + 6,
+                           log_every=cfg.run.log_every,
+                           ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
+                           logger=logger, start_step=start,
+                           callback=snapshot_cb,
+                           probe_every=api._select_every(cfg,
+                                                         cfg.adapt.steps),
+                           probe=select_probe,
+                           protect_steps=select_probe.protect_steps)
     select_probe.finalize()  # the last deferred tick + the smoothing tail
     best = selector.best_step
     if best is not None:
@@ -341,7 +373,7 @@ def cmd_adapt(args):
             print(f"materialized selected checkpoint at step {best}",
                   flush=True)
     logger.close()
-    print(f"done; final checkpoint in {args.out}", flush=True)
+    _done(args.out, last)
     return 0
 
 
@@ -395,8 +427,26 @@ def build_parser():
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
 
+    def parallel(sp):
+        sp.add_argument("--dp", type=int, default=0,
+                        help="data parallel over N ranks on this host, one "
+                             "per device (rank r on cuda:r, or the CPU)")
+        sp.add_argument("--multihost", action="store_true",
+                        help="run as one rank of a multi-process world "
+                             "(the three flags below, or torchrun's "
+                             "environment)")
+        sp.add_argument("--coordinator", default=None,
+                        help="host:port of rank 0")
+        sp.add_argument("--num-processes", type=int, default=None)
+        sp.add_argument("--process-id", type=int, default=None)
+        sp.add_argument("--gloo", "--mh-cpu-gloo", dest="gloo",
+                        action="store_true",
+                        help="gloo collectives on a GPU too (NCCL refuses "
+                             "two ranks on one GPU)")
+
     sp = sub.add_parser("train-source", help="supervised source training")
     common(sp)
+    parallel(sp)
     sp.add_argument("--out", required=True)
     sp.add_argument("--from-ckpt", default=None,
                     help="explicit resume checkpoint (default: --out latest)")
@@ -404,6 +454,7 @@ def build_parser():
 
     sp = sub.add_parser("adapt", help="critic pretrain + adaptation")
     common(sp)
+    parallel(sp)
     sp.add_argument("--source-ckpt", required=True,
                     help="source run dir or step checkpoint")
     sp.add_argument("--out", required=True)
@@ -463,8 +514,62 @@ def build_parser():
     return p
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _join(args, coordinator, num_processes, process_id) -> None:
+    """Join the process group and put this rank's device in
+    ``args.device``."""
+    from mcmda_tpu_torch.parallel import multihost
+    if not multihost.initialize(coordinator, num_processes, process_id,
+                                backend="gloo" if args.gloo else None,
+                                device=args.device) \
+            and not torch.distributed.is_initialized():
+        raise SystemExit("--multihost: pass --coordinator, --num-processes "
+                         "and --process-id, or run under torchrun")
+    args.device = str(multihost.local_device(args.device))
+
+
+def _rank_main(rank: int, args, port: int) -> None:
+    """One rank of ``--dp N`` (a spawned process)."""
+    _join(args, f"127.0.0.1:{port}", args.dp, rank)
+    try:
+        args.fn(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(args) -> int:
+    """``--dp N`` on one host: N spawned ranks; rank r on ``cuda:r``, or
+    all on the CPU.  A ``cuda`` run with more ranks than devices ends the
+    command before any rank starts; a failed rank ends the others."""
+    import torch.multiprocessing as mp
+    from mcmda_tpu_torch.parallel import mesh
+    try:
+        mesh.check_devices(args.dp, args.device)
+    except ValueError as e:
+        raise SystemExit(f"--dp {args.dp}: {e}")
+    try:
+        mp.spawn(_rank_main, args=(args, _free_port()), nprocs=args.dp)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SystemExit(f"--dp {args.dp}: {e}")
+    return 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if getattr(args, "multihost", False):
+        _join(args, args.coordinator, args.num_processes, args.process_id)
+        try:
+            return args.fn(args)
+        finally:
+            torch.distributed.destroy_process_group()
+    if getattr(args, "dp", 0) > 1:
+        return _spawn_ranks(args)
     ret = args.fn(args)
     return ret if isinstance(ret, int) else 0
 

@@ -3,8 +3,11 @@
 
 One difference: ``SegmenterConfig.compute_dtype`` is held as a dtype *name*
 ("float32" or "bfloat16"); ``torch_dtype`` maps it to a torch dtype at use.
-Fields of paths not ported yet (adaptation, the critic, data parallelism)
-are kept so that every config file parses identically.
+Every field is kept so that every config file parses identically, also
+where the port has no use for it: ``parallel.data_axis`` names the JAX
+mesh axis (the port's data parallelism takes its process group from the
+drivers) and ``parallel.sync_bn`` is read by neither package (both always
+sync BN under data parallelism).
 
 The kernel switches keep the JAX package's strings.  On a CUDA tensor,
 ``data.warp="pallas"`` selects the hand-written warp kernel and

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from mcmda_tpu_torch.data import volumes as vol_io
+from mcmda_tpu_torch.parallel import dp
 
 
 def _stack_index(s: int, context: int, batch_size: int, device):
@@ -49,15 +50,30 @@ def get_tta(name: str | None):
     raise ValueError(f"unknown TTA mode {name!r} (expected none|flip)")
 
 
+def _sharded(forward, group):
+    """``forward(images, *fwd_args)`` with each batch split over the ranks
+    of ``group`` and the outputs gathered (``dp.data_parallel_forward``,
+    which takes the images last)."""
+    fwd = dp.data_parallel_forward(lambda *a: forward(a[-1], *a[:-1]), group)
+    return lambda xb, *args: fwd(*args, xb)
+
+
 @torch.inference_mode()
 def predict_volume(forward, volume: np.ndarray, *, context: int = 3,
-                   batch_size: int = 8, fwd_args=(),
-                   device="cuda") -> np.ndarray:
+                   batch_size: int = 8, fwd_args=(), device="cuda",
+                   mesh=None) -> np.ndarray:
     """Run ``forward(images[B,H,W,ctx], *fwd_args) -> probs[B,H,W,K]`` over
     every slice of the [S,H,W] ``volume``; returns the label volume
     [S,H,W] int32.  ``fwd_args`` carries what changes between calls (the
     weights of a periodic validation) so that ``forward`` itself can stay
-    one function."""
+    one function.
+
+    ``mesh``: a process group whose every rank calls this with the same
+    volume; each batch is split over its ranks and the probabilities are
+    gathered, so every rank returns the whole label volume.  ``batch_size``
+    must divide by the number of ranks."""
+    if mesh is not None:
+        forward = _sharded(forward, mesh)
     s = volume.shape[0]
     vol = torch.from_numpy(np.ascontiguousarray(volume, np.float32)).to(device)
     idx = _stack_index(s, context, batch_size, device)

@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 from mcmda_tpu_torch import config as cm  # noqa: E402
 from mcmda_tpu_torch.data import pipeline, synthetic, volumes  # noqa: E402
 from mcmda_tpu_torch.evaluation import report  # noqa: E402
+from mcmda_tpu_torch.parallel import multihost  # noqa: E402
 from mcmda_tpu_torch.train import adapt, drivers, loop, source  # noqa: E402
 from mcmda_tpu_torch.utils import device as device_mod  # noqa: E402
 from mcmda_tpu_torch.utils import logging as mlog  # noqa: E402
@@ -62,15 +63,18 @@ def main(argv=None) -> int:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (default: the GPU, else an error)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel over N devices (N > 1 is not "
-                        "ported yet and raises)")
+                   help="data parallel over N ranks, one per device: run "
+                        "the script under torchrun --nproc-per-node N")
     p.add_argument("--source-steps", type=int, default=400)
     p.add_argument("--pretrain-steps", type=int, default=100)
     p.add_argument("--adapt-steps", type=int, default=400)
     args = p.parse_args(argv)
 
-    device = device_mod.resolve("cpu" if args.cpu else "cuda",
-                                deterministic=True)
+    device = "cpu" if args.cpu else "cuda"
+    if args.dp > 1:  # join the ranks torchrun started
+        multihost.initialize(device=device)
+        device = multihost.local_device(device)
+    device = device_mod.resolve(device, deterministic=True)
     cfg = build_config(args.source_steps, args.pretrain_steps,
                        args.adapt_steps)
     print(f"device: {device}", flush=True)
@@ -88,7 +92,8 @@ def main(argv=None) -> int:
     state = source.init_state(0, cfg, device)
     step, global_batch, to_device = drivers.wrap_dp(
         cfg, source.make_train_step, args.dp, device=device)
-    sampler = iter(pipeline.BatchSampler(mri_train, global_batch, seed=1,
+    sampler = iter(pipeline.BatchSampler(mri_train, global_batch,
+                                         seed=drivers.host_seed(1),
                                          num_classes=5))
     t0 = time.time()
     state, _ = loop.run(step, state, to_device(sampler), cfg.source.steps,
@@ -118,8 +123,10 @@ def main(argv=None) -> int:
     print("\n== config 3: discriminator pretrain ==", flush=True)
     a_state = adapt.init_state(2, cfg, state.params, state.bn_state)
     per_host, to_device = drivers.feed_plumbing(cfg, args.dp, device=device)
-    src_sampler = iter(pipeline.BatchSampler(mri_train, per_host, seed=3))
-    tgt_sampler = iter(pipeline.BatchSampler(ct_train, per_host, seed=4))
+    src_sampler = iter(pipeline.BatchSampler(mri_train, per_host,
+                                             seed=drivers.host_seed(3)))
+    tgt_sampler = iter(pipeline.BatchSampler(ct_train, per_host,
+                                             seed=drivers.host_seed(4)))
 
     def adapt_feed():
         for sb, tb in zip(src_sampler, tgt_sampler):

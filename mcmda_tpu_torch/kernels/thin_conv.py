@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.nn import grad as nn_grad
 
 from mcmda_tpu_torch.kernels import build
+from mcmda_tpu_torch.ops import layers
 
 # Kernel launches made by ``stem_conv_forward``; callers reset and read it to
 # show that a run really went through the kernel.
@@ -131,14 +132,15 @@ def stem_conv_nhwc(x, w, input_grad: bool = False):
 
 
 def bn_relu_cf(params, state, y, train: bool, momentum: float = 0.99,
-               eps: float = 1e-5):
+               eps: float = 1e-5, group=None):
     """Batch norm + ReLU of a channels-first [N,K,H,W] tensor, the
     semantics of ``layers.bn_apply_train`` / ``bn_apply`` reduced over
-    (N,H,W); the state dict in and out is the NHWC path's."""
+    (N,H,W) and, in train mode, the ranks of ``group`` (sync-BN); the state
+    dict in and out is the NHWC path's."""
     y32 = y.float()
     if train:
-        mean = y32.mean((0, 2, 3))
-        mean2 = torch.square(y32).mean((0, 2, 3))
+        mean, mean2 = layers.sync_moments(
+            y32.mean((0, 2, 3)), torch.square(y32).mean((0, 2, 3)), group)
         var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
         with torch.no_grad():
             new_state = {"mean": momentum * state["mean"]
@@ -155,13 +157,15 @@ def bn_relu_cf(params, state, y, train: bool, momentum: float = 0.99,
 
 
 def stem_apply_cf(p, st, x, *, train: bool, momentum: float, eps: float,
-                  use_kernel: bool = True, input_grad: bool = False):
+                  use_kernel: bool = True, input_grad: bool = False,
+                  group=None):
     """The channels-first stem: conv -> BN + ReLU -> NHWC.  Returns
     (h [N,H,W,K], {"bn": new state}).  ``use_kernel=False`` runs the conv's
-    plain version (with autograd's gradients) on any device."""
+    plain version (with autograd's gradients) on any device; ``group`` syncs
+    the train-mode BN over the ranks."""
     if use_kernel:
         y = stem_conv_nhwc(x, p["conv"]["w"], input_grad)
     else:
         y = stem_conv_nhwc_reference(x, p["conv"]["w"])
-    y, bn_s = bn_relu_cf(p["bn"], st["bn"], y, train, momentum, eps)
+    y, bn_s = bn_relu_cf(p["bn"], st["bn"], y, train, momentum, eps, group)
     return y.permute(0, 2, 3, 1), {"bn": bn_s}

@@ -121,14 +121,17 @@ def conv_stats(x, w, dilation: int = 1):
 
 def conv_bn_act_train(conv_p, bn_p, bn_state, x, *, dilation: int = 1,
                       activation: str = "relu", momentum: float = 0.99,
-                      eps: float = 1e-5, residual=None):
+                      eps: float = 1e-5, residual=None, group=None):
     """conv -> train-mode BN -> (+ residual) -> activation, the BN moments
     taken from the fused conv: the analog of ``conv_apply`` +
-    ``bn_apply_train`` [+ residual] + relu.  Returns (y, new BN state)."""
+    ``bn_apply_train`` [+ residual] + relu.  Under data parallelism the
+    kernel's raw moments are averaged over the ranks of ``group`` before
+    the normalisation (sync-BN; the kernel itself is per rank).  Returns
+    (y, new BN state)."""
     z, s, ss = conv_stats(x, conv_p["w"], dilation)
     cnt = z.shape[0] * z.shape[1] * z.shape[2]
     y, new_state = layers.bn_normalize_train(bn_p, bn_state, z, s / cnt,
-                                             ss / cnt, momentum, eps)
+                                             ss / cnt, momentum, eps, group)
     if residual is not None:
         y = y + residual
     if activation == "relu":

@@ -59,7 +59,7 @@ def _stage_params(params, dam_params, plug_depth, cfg: SegmenterConfig):
 
 def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
           dam_params=None, plug_depth: str | None = None,
-          bn_train_stages: frozenset | None = None):
+          bn_train_stages: frozenset | None = None, group=None):
     """Forward pass (the JAX ``segmenter.apply``).
 
     ``train=True`` normalizes by batch statistics and returns updated BN
@@ -68,7 +68,8 @@ def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
     the running statistics and returns ``state`` unchanged.
     ``bn_train_stages`` restricts batch statistics to the named stages (the
     ``adapt.hlm_bn="frozen"`` policy passes the DAM's): the others run in
-    eval mode and keep their running statistics.
+    eval mode and keep their running statistics.  ``group`` (the JAX
+    ``axis_name``) syncs the batch statistics over its ranks.
 
     x [N,H,W,C] -> (logits [N,H,W,classes] f32, probs = softmax(logits),
     taps {stage name: activation}, new_state)."""
@@ -85,7 +86,8 @@ def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
             h = layers.conv_apply(p["conv"], h, compute_dtype=dtype)
             if stage_train:
                 h, bn_s = layers.bn_apply_train(p["bn"], st["bn"], h,
-                                                cfg.bn_momentum, cfg.bn_eps)
+                                                cfg.bn_momentum, cfg.bn_eps,
+                                                group)
             else:
                 h, bn_s = layers.bn_apply(p["bn"], st["bn"], h,
                                           cfg.bn_eps), st["bn"]
@@ -94,7 +96,8 @@ def apply(params, state, x, cfg: SegmenterConfig, *, train: bool = False,
         else:
             h, new_state[spec.name] = blocks.stage_apply(
                 p, st, h, spec, train=stage_train, momentum=cfg.bn_momentum,
-                eps=cfg.bn_eps, compute_dtype=dtype, fused_train=fused_train)
+                eps=cfg.bn_eps, compute_dtype=dtype, fused_train=fused_train,
+                group=group)
         taps[spec.name] = h
     logits = layers.conv_apply(params["head"], h, compute_dtype=dtype)
     logits = layers.bilinear_upsample(logits, cfg.total_stride).float()

@@ -12,6 +12,9 @@ input and output channels multiples of 128 -- at the default stages 15
 convs per forward: the 3 stride-1 convs of rm3 and the 12 of rm4-rm6.  The
 TPU kernel's VMEM-size gate has no counterpart here.
 
+Train mode takes the data-parallel process group ``group`` (the JAX
+``axis_name``) for sync-BN, on both BN paths.
+
 Per-block layout::
 
     params = {"conv1", "bn1", "conv2", "bn2", ["proj", "bn_p"]}
@@ -58,14 +61,14 @@ def residual_block_apply(params, state, x, *, stride: int = 1,
                          dilation: int = 1, train: bool = False,
                          momentum: float = 0.99, eps: float = 1e-5,
                          compute_dtype: torch.dtype = torch.float32,
-                         fused_train: bool = False):
+                         fused_train: bool = False, group=None):
     """One block -> (output, new BN state).  Eval mode returns the running
-    statistics unchanged; train mode normalizes by batch statistics and
-    returns updated ones."""
+    statistics unchanged; train mode normalizes by batch statistics (over
+    the ranks of ``group``) and returns updated ones."""
     def bn(name, h):
         if train:
             return layers.bn_apply_train(params[name], state[name], h,
-                                         momentum, eps)
+                                         momentum, eps, group)
         return layers.bn_apply(params[name], state[name], h, eps), \
             state[name]
 
@@ -75,7 +78,7 @@ def residual_block_apply(params, state, x, *, stride: int = 1,
         h, new_state["bn1"] = train_conv.conv_bn_act_train(
             params["conv1"], params["bn1"], state["bn1"],
             x.float().contiguous(), dilation=dilation, activation="relu",
-            momentum=momentum, eps=eps)
+            momentum=momentum, eps=eps, group=group)
     else:
         h = layers.conv_apply(params["conv1"], x, stride=stride,
                               dilation=dilation, compute_dtype=compute_dtype)
@@ -92,7 +95,7 @@ def residual_block_apply(params, state, x, *, stride: int = 1,
         out, new_state["bn2"] = train_conv.conv_bn_act_train(
             params["conv2"], params["bn2"], state["bn2"],
             h.float().contiguous(), dilation=dilation, activation="relu",
-            momentum=momentum, eps=eps, residual=sc.float())
+            momentum=momentum, eps=eps, residual=sc.float(), group=group)
         return out, new_state
     h = layers.conv_apply(params["conv2"], h, dilation=dilation,
                           compute_dtype=compute_dtype)
@@ -117,7 +120,7 @@ def stage_init(cin: int, spec, *, generator: torch.Generator | None = None,
 def stage_apply(params, state, x, spec, *, train: bool = False,
                 momentum: float = 0.99, eps: float = 1e-5,
                 compute_dtype: torch.dtype = torch.float32,
-                fused_train: bool = False):
+                fused_train: bool = False, group=None):
     """-> (output, new BN state of the stage)."""
     new_state = {}
     for i in range(spec.blocks):
@@ -125,5 +128,6 @@ def stage_apply(params, state, x, spec, *, train: bool = False,
             params[f"b{i}"], state[f"b{i}"], x,
             stride=spec.stride if i == 0 else 1, dilation=spec.dilation,
             train=train, momentum=momentum, eps=eps,
-            compute_dtype=compute_dtype, fused_train=fused_train)
+            compute_dtype=compute_dtype, fused_train=fused_train,
+            group=group)
     return x, new_state

@@ -6,6 +6,10 @@ fed the same arrays.  Internally each conv permutes to PyTorch's NCHW/OIHW.
 
 Param/state convention: dicts of tensors, ``{"w": ..., ["b": ...]}`` for a
 conv, ``{"scale", "bias"}`` params and ``{"mean", "var"}`` state for BN.
+
+Train-mode BN takes the data-parallel process group ``group`` (the JAX
+``axis_name``; None on one device): sync-BN averages the raw moments E[x]
+and E[x^2] over the ranks before it normalizes.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from mcmda_tpu_torch.parallel import dp
 
 
 # --------------------------------------------------------------------- conv
@@ -86,16 +92,28 @@ def bn_apply(params, state, x, eps: float = 1e-5):
     return y.to(x.dtype)
 
 
+def sync_moments(mean, mean2, group=None):
+    """Sync-BN: the moments E[x] and E[x^2] of equal shards averaged over
+    the ranks of ``group`` in one all-reduce (``dp.global_mean``, whose
+    backward averages the cotangents); unchanged on one device."""
+    if group is None:
+        return mean, mean2
+    return dp.global_mean(torch.stack([mean, mean2]), group).unbind()
+
+
 def bn_normalize_train(params, state, x32, mean, mean2,
-                       momentum: float = 0.99, eps: float = 1e-5):
+                       momentum: float = 0.99, eps: float = 1e-5,
+                       group=None):
     """Train-mode BN of the f32 ``x32`` from its batch moments E[x] and
-    E[x^2] -> (y f32, new running state).
+    E[x^2] (of this rank's shard: they are synced over ``group`` here) ->
+    (y f32, new running state).
 
     The variance is the biased ``E[x^2] - E[x]^2`` clamped at 0, used both to
     normalize and to update the running statistics, and ``momentum`` is the
     fraction of the old statistic kept -- the JAX package's semantics, not
     ``F.batch_norm``'s (unbiased running variance, momentum 0.01).  The new
     state carries no autograd history."""
+    mean, mean2 = sync_moments(mean, mean2, group)
     var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
     with torch.no_grad():
         new_state = {
@@ -108,15 +126,16 @@ def bn_normalize_train(params, state, x32, mean, mean2,
 
 
 def bn_apply_train(params, state, x, momentum: float = 0.99,
-                   eps: float = 1e-5):
+                   eps: float = 1e-5, group=None):
     """Train-mode batch norm (the JAX ``bn_apply(train=True)``): batch
-    statistics over N,H,W in f32, output in ``x``'s dtype, and the updated
-    running state returned, never written in place."""
+    statistics over N,H,W (and the ranks of ``group``) in f32, output in
+    ``x``'s dtype, and the updated running state returned, never written in
+    place."""
     x32 = x.float()
     mean = x32.mean((0, 1, 2))
     mean2 = torch.square(x32).mean((0, 1, 2))
     y, new_state = bn_normalize_train(params, state, x32, mean, mean2,
-                                      momentum, eps)
+                                      momentum, eps, group)
     return y.to(x.dtype), new_state
 
 

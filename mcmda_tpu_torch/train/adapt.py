@@ -13,6 +13,14 @@ returns a new ``AdaptState`` and never updates the old one in place.
 ``init_state`` copies the source checkpoint into both the frozen path and
 the DAM (the K1 handoff).
 
+Under data parallelism the step takes the process group ``group`` (the JAX
+``axis_name``): sync-BN on every train-mode forward, the critic's and the
+DAM's gradients averaged over the ranks (the GAN losses are per-shard
+means of equal shards, so the mean is the whole batch's gradient), and the
+critic accuracy averaged before the throttle decides, so that every rank
+makes the same decision and feeds the same ``d_acc`` to the weight
+average.
+
 Selection: ``ClassRatioSelector``, ``EquilibriumSelector``,
 ``select_warmup``, ``smooth_window`` and ``label_fractions`` are host numpy,
 copied from the JAX package (importing it would import jax);
@@ -37,6 +45,7 @@ from mcmda_tpu_torch.data import pipeline
 from mcmda_tpu_torch.models import critic as critic_mod
 from mcmda_tpu_torch.models import segmenter
 from mcmda_tpu_torch.ops import losses
+from mcmda_tpu_torch.parallel import dp
 from mcmda_tpu_torch.train import optim
 from mcmda_tpu_torch.utils import prng, tree
 
@@ -115,7 +124,7 @@ def _f32(taps):
     return {k: v.float() for k, v in taps.items()}
 
 
-def make_adapt_step(cfg: ExperimentConfig, train_g: bool = True,
+def make_adapt_step(cfg: ExperimentConfig, group=None, train_g: bool = True,
                     augment: bool = True, sample_from_device: bool = False):
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -125,7 +134,9 @@ def make_adapt_step(cfg: ExperimentConfig, train_g: bool = True,
     draws its batches there.  ``seed`` seeds the step's generator (batch
     indices, then augmentation draws).  ``train_g=False`` is the critic
     pretrain phase.  Metrics are device scalars: d_loss, d_acc, feat_div,
-    feat_mmd and, when the DAM trains, g_loss."""
+    feat_mmd and, when the DAM trains, g_loss (feat_div and feat_mmd of
+    this rank's shard).  ``group``: this rank's step of a data-parallel run
+    (``parallel/dp.data_parallel_step`` wraps it)."""
     a = cfg.adapt
     seg_cfg = cfg.segmenter
     cr_cfg = cfg.critic
@@ -152,14 +163,14 @@ def make_adapt_step(cfg: ExperimentConfig, train_g: bool = True,
     def src_taps(state, x):
         # batch-statistic features; the new BN statistics are thrown away
         _, _, taps, _ = segmenter.apply(state.src_params, state.src_bn, x,
-                                        src_seg_cfg, train=True)
+                                        src_seg_cfg, train=True, group=group)
         return _f32(taps)
 
     def tgt_forward(dam_params, state, x, cfg_fwd=seg_cfg):
         _, _, taps, new_bn = segmenter.apply(
             state.src_params, state.tgt_bn, x, cfg_fwd, train=True,
             dam_params=dam_params, plug_depth=a.plug_depth,
-            bn_train_stages=bn_train_stages)
+            bn_train_stages=bn_train_stages, group=group)
         return taps, new_bn
 
     def critic_logits(cp, taps):
@@ -191,7 +202,11 @@ def make_adapt_step(cfg: ExperimentConfig, train_g: bool = True,
                 dl = dl + 0.5 * a.r1_gamma * r1
             grads = tree.unflatten(state.critic_params,
                                    torch.autograd.grad(dl, leaves))
-        acc = losses.critic_accuracy(l_s.detach(), l_t.detach(), boundary)
+        grads = dp.reduce_grads(grads, group, mean=True)
+        # the global accuracy: every rank makes the same throttle decision
+        acc = dp.global_mean(
+            losses.critic_accuracy(l_s.detach(), l_t.detach(), boundary),
+            group)
         updates, new_opt = tx_d.update(grads, state.opt_d_state,
                                        state.critic_params)
         if a.d_acc_cap < 1.0:
@@ -220,6 +235,7 @@ def make_adapt_step(cfg: ExperimentConfig, train_g: bool = True,
              "feat_mmd": fmmd}
 
     def g_update(state, gl, grads, new_bn):
+        grads = dp.reduce_grads(grads, group, mean=True)
         updates, new_opt = tx_g.update(grads, state.opt_g_state,
                                        state.dam_params)
         new_dam = tree.tree_map(lambda p, u: p + u, state.dam_params, updates)

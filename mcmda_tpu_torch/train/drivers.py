@@ -1,45 +1,55 @@
 """Shared execution-strategy plumbing for the CLI and the library API
-(counterpart of ``mcmda_tpu/train/drivers.py``, single-device half).
+(counterpart of ``mcmda_tpu/train/drivers.py``).
 
-One place decides HOW a train step runs and HOW batches reach it: a host
-sampler behind the double-buffered feed, or a device-resident dataset with
-on-device sampling inside the step.  ``cli.py`` and ``api.py`` are thin
-frontends over these helpers, so the command line and ``api.adapt(cfg,
-...)`` execute identically.
+One place decides HOW a train step runs -- on one device, or data parallel
+over the ranks of a ``torch.distributed`` process group -- and HOW batches
+reach it: a host sampler behind the double-buffered feed, or a
+device-resident dataset with on-device sampling inside the step.
+``cli.py`` and ``api.py`` are thin frontends over these helpers, so
+``--dp 2`` on the command line and ``api.adapt(cfg, ..., dp=2)`` on each of
+two ranks execute identically.
 
-Data parallelism (``dp > 1``, or an initialised ``torch.distributed`` world
-of more than one process) needs the JAX package's ``parallel/`` modules,
-which have no counterpart yet: until they do, every function here raises
-``NotImplementedError`` for it and never runs on one device instead.  The JAX package's ``pick_inner`` and
-``loop.scanned_step`` fuse dispatches for a TPU and have no counterpart.
+Data parallel runs one process per device.  ``dp > 1`` asks for a group of
+exactly ``dp`` ranks (``parallel/mesh.make_mesh``: more ranks than CUDA
+devices on a ``cuda`` run, or an initialised world of another size,
+raises); with ``dp`` 0 or 1 an initialised world of several processes
+(``--multihost``) runs data parallel over all of them.  Each rank feeds its
+own batch of ``data.batch_size`` (the global batch is ``dp`` times that),
+drawn from its own shard of the dataset.  The JAX package's ``pick_inner``
+and ``loop.scanned_step`` fuse dispatches for a TPU and have no
+counterpart.
 """
 
 from __future__ import annotations
 
-import torch.distributed as dist
-
-
-def _world() -> tuple[int, int]:
-    """(rank, world size) of the initialised process group, else (0, 1)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+from mcmda_tpu_torch.parallel import dp as dp_mod, mesh, multihost
 
 
 def multihost_active() -> bool:
-    return _world()[1] > 1
+    return multihost.world()[1] > 1
 
 
 def is_primary() -> bool:
-    return _world()[0] == 0
+    return multihost.is_primary()
 
 
-def _single_device_only(dp: int) -> None:
-    if (dp and dp > 1) or multihost_active():
-        raise NotImplementedError(
-            f"data parallelism (dp={dp}, world size {_world()[1]}) needs "
-            "parallel/dp, mesh and multihost, which are not ported yet; "
-            "run with dp=0 on one device")
+def dp_group(dp: int = 0, device="cuda"):
+    """The process group a run is data parallel over, None on one device.
+    Raises where ``dp > 1`` cannot be honoured; never runs on one device
+    instead."""
+    if dp and dp > 1:
+        return mesh.make_mesh(dp, device)
+    if multihost_active():
+        return multihost.global_mesh()
+    return None
+
+
+def shard(ds, dp: int = 0, device="cuda"):
+    """This rank's contiguous shard of a slice dataset under data
+    parallelism (``multihost.shard_dataset``), else the dataset."""
+    if dp_group(dp, device) is None:
+        return ds
+    return multihost.shard_dataset(ds, multihost.world()[1])
 
 
 def feed(stream, device="cuda", prefetch: int = 2):
@@ -48,42 +58,66 @@ def feed(stream, device="cuda", prefetch: int = 2):
 
 
 def host_seed(seed: int) -> int:
-    """Per-host sampler seed: under multi-host each process must draw
-    DIFFERENT batches (otherwise the assembled global batch is N copies of
-    one host's draw and effective batch diversity silently drops N-fold)."""
-    return seed + 100003 * _world()[0]
+    """Per-rank sampler seed: under data parallelism each process must draw
+    DIFFERENT batches (otherwise the global batch is N copies of one rank's
+    draw and effective batch diversity silently drops N-fold)."""
+    return seed + 100003 * multihost.world()[0]
+
+
+def _replicating(step, group):
+    """``step`` that first makes every rank start from rank 0's state
+    (``multihost.replicate``, once: identical updates keep the ranks equal
+    after it)."""
+    first = [True]
+
+    def wrapped(state, batch, seed):
+        if first[0]:
+            state, first[0] = multihost.replicate(state, group), False
+        return step(state, batch, seed)
+
+    return wrapped
+
+
+def _step(cfg, make_step, group, **mk_kwargs):
+    if group is None:
+        return make_step(cfg, **mk_kwargs)
+    return _replicating(dp_mod.data_parallel_step(
+        make_step(cfg, group=group, **mk_kwargs), group), group)
 
 
 def feed_plumbing(cfg, dp: int = 0, device="cuda"):
-    """(per-host batch size, feed transform): the input half of
+    """(per-rank batch size, feed transform): the input half of
     ``wrap_dp``, for callers that build their step separately (e.g. a
     pretrain and a main step over one shared sampler stream)."""
-    _single_device_only(dp)
+    dp_group(dp, device)
     return cfg.data.batch_size, lambda s: feed(s, device)
 
 
 def wrap_dp(cfg, make_step, dp: int = 0, device="cuda", **mk_kwargs):
-    """(step_fn, per-host batch size, feed transform): with ``dp`` 0 or 1
-    the plain ``make_step(cfg, **mk_kwargs)`` fed by a host sampler through
-    ``feed``."""
-    _single_device_only(dp)
-    return make_step(cfg, **mk_kwargs), cfg.data.batch_size, \
-        lambda s: feed(s, device)
+    """(step_fn, per-rank batch size, feed transform): ``make_step(cfg,
+    **mk_kwargs)`` fed by a host sampler through ``feed``; under data
+    parallelism built with the group and wrapped by
+    ``dp.data_parallel_step``."""
+    group = dp_group(dp, device)
+    return _step(cfg, make_step, group, **mk_kwargs), \
+        cfg.data.batch_size, lambda s: feed(s, device)
 
 
-def device_resident_dp(cfg, make_step, dp: int, data_builder, **mk_kwargs):
-    """(step_fn, data): the device-resident dataset ``data_builder(None)``
-    (the argument is the batch sharding, None on one device) and the step
-    that samples from it on the device.  The JAX package's ``inner``
-    argument is the dispatch-fusion factor of its ``scanned_step`` and is
-    dropped here: one train step per call."""
-    _single_device_only(dp)
-    data = data_builder(None)
-    return make_step(cfg, sample_from_device=True, **mk_kwargs), data
+def device_resident_dp(cfg, make_step, dp: int, data_builder,
+                       device="cuda", **mk_kwargs):
+    """(step_fn, data): the device-resident dataset ``data_builder(group)``
+    (the group is None on one device; under data parallelism the builder
+    holds this rank's shard, see ``shard``) and the step that samples its
+    batch from it on the device.  The JAX package's ``inner`` argument is
+    the dispatch-fusion factor of its ``scanned_step`` and is dropped here:
+    one train step per call."""
+    group = dp_group(dp, device)
+    data = data_builder(group)
+    return _step(cfg, make_step, group, sample_from_device=True,
+                 **mk_kwargs), data
 
 
-def batch_sharding_for(dp: int = 0):
-    """Batch sharding for feeding device-resident datasets: None on one
-    device."""
-    _single_device_only(dp)
-    return None
+def batch_sharding_for(dp: int = 0, device="cuda"):
+    """What a batch is split over: the data-parallel group (the JAX
+    package's batch sharding of the mesh), None on one device."""
+    return dp_group(dp, device)

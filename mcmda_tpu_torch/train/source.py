@@ -5,6 +5,13 @@ One train step: on-device sampling (optional) -> augmentation -> train-mode
 forward -> weighted cross-entropy + soft Dice -> Adam.  The state is
 functional: the step returns a new ``SourceState`` and never updates the
 old one in place.
+
+Under data parallelism the step takes the process group ``group`` (the JAX
+``axis_name``): sync-BN, the loss's global sums, and the gradients summed
+over the ranks -- each rank's gradient is its shard's part of the gradient
+of the global loss, so the sum is the whole batch's gradient, what one
+device computes (``parallel/dp.py`` says why the JAX package's is N times
+that).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from mcmda_tpu_torch.config import ExperimentConfig
 from mcmda_tpu_torch.data import pipeline
 from mcmda_tpu_torch.models import segmenter
 from mcmda_tpu_torch.ops import losses
+from mcmda_tpu_torch.parallel import dp
 from mcmda_tpu_torch.train import optim
 from mcmda_tpu_torch.utils import prng, tree
 
@@ -46,24 +54,27 @@ def init_state(seed: int, cfg: ExperimentConfig, device) -> SourceState:
                        step=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def value_and_grad(params, bn_state, image, label, cfg: ExperimentConfig):
+def value_and_grad(params, bn_state, image, label, cfg: ExperimentConfig,
+                   group=None):
     """The supervised loss at ``params`` and its gradients (the JAX step's
     ``jax.value_and_grad(loss_fn, has_aux=True)``) -> (loss, {"xent",
-    "dice_loss"}, new BN state, grads)."""
+    "dice_loss"}, new BN state, grads).  With ``group`` the loss is the
+    global batch's and the gradients are this rank's part of its gradient
+    (not yet summed over the ranks)."""
     leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
     logits, probs, _, new_bn = segmenter.apply(
         tree.unflatten(params, leaves), bn_state, image, cfg.segmenter,
-        train=True)
+        train=True, group=group)
     src = cfg.source
     loss, parts = losses.segmentation_loss(
         logits, probs, label, src.xent_weight, src.dice_weight,
-        src.class_weights)
+        src.class_weights, group=group)
     grads = tree.unflatten(params, torch.autograd.grad(loss, leaves))
     return (loss.detach(), {k: v.detach() for k, v in parts.items()},
             new_bn, grads)
 
 
-def make_train_step(cfg: ExperimentConfig, augment: bool = True,
+def make_train_step(cfg: ExperimentConfig, group=None, augment: bool = True,
                     sample_from_device: bool = False):
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -71,7 +82,8 @@ def make_train_step(cfg: ExperimentConfig, augment: bool = True,
     ``sample_from_device`` it is the device-resident dataset of
     ``pipeline.to_device_arrays`` and the step draws its own batch there.
     ``seed`` seeds the step's generator (batch indices, then augmentation
-    draws).  Metrics are device scalars."""
+    draws).  Metrics are device scalars.  ``group``: this rank's step of a
+    data-parallel run (``parallel/dp.data_parallel_step`` wraps it)."""
     tx = make_tx(cfg)
 
     def step(state: SourceState, batch, seed: int):
@@ -85,7 +97,8 @@ def make_train_step(cfg: ExperimentConfig, augment: bool = True,
         if augment:
             image, label = pipeline.augment_batch(gen, image, label, cfg.data)
         loss, parts, new_bn, grads = value_and_grad(
-            state.params, state.bn_state, image, label, cfg)
+            state.params, state.bn_state, image, label, cfg, group)
+        grads = dp.reduce_grads(grads, group)
         updates, new_opt = tx.update(grads, state.opt_state, state.params)
         with torch.no_grad():
             new_params = tree.tree_map(lambda p, u: p + u, state.params,

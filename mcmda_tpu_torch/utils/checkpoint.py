@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 
 from mcmda_tpu_torch import weights
+from mcmda_tpu_torch.parallel import multihost
 from mcmda_tpu_torch.utils import orbax_read
 
 
@@ -28,9 +29,13 @@ def save(path: str, state: Any, step: int | None = None) -> str:
     """Write ``state`` as ``<path>/step_<step>.npz`` (or ``<path>.npz``
     without a step); returns the step path without its suffix, as the JAX
     package does.  The file appears atomically: a reader polling the
-    directory never sees a half-written checkpoint."""
+    directory never sees a half-written checkpoint.  In a process group
+    only rank 0 writes: the state is replicated, so one file serves every
+    rank."""
     if step is not None:
         path = os.path.join(path, f"step_{step:08d}")
+    if not multihost.is_primary():
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".npz.tmp"
     with open(tmp, "wb") as f:
@@ -57,8 +62,9 @@ def prune(ckpt_dir: str, keep: int = 3, protect=(),
     (the selection's candidates) survive.  ``newest``, the step of a save
     started just before, counts toward the newest ``keep`` even if its file
     is not listed yet, as in the JAX package, whose saves are asynchronous
-    (the port's are not)."""
-    if not os.path.isdir(ckpt_dir) or keep <= 0:
+    (the port's are not).  In a process group only rank 0 deletes."""
+    if not os.path.isdir(ckpt_dir) or keep <= 0 or \
+            not multihost.is_primary():
         return
     steps = sorted(set(_steps(ckpt_dir))
                    | ({newest} if newest is not None else set()))

@@ -25,6 +25,15 @@ def step_key(root: int, step: int, purpose: int = 0) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
+def fold_in(seed: int, data: int) -> int:
+    """A seed mixed from ``seed`` and ``data`` (``jax.random.fold_in``):
+    the data-parallel step folds each rank into its step's seed, so that no
+    two ranks draw one stream."""
+    words = np.random.SeedSequence([int(seed), int(data)]) \
+        .generate_state(2, np.uint32)
+    return (int(words[0]) << 31) ^ int(words[1])
+
+
 def generator(seed: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
     return torch.Generator(device=device).manual_seed(seed)

@@ -5,7 +5,8 @@ Held against the JAX package where it has the same function:
 ``augment_batch_host`` / ``host_augmented`` on the same
 ``np.random.default_rng(seed)`` stream (atol 1e-6: both are the same scipy
 calls on f32 arrays).  The rest is held to its contract: the drivers return
-the plain step and feed on one device and raise for data parallelism; the
+the plain step and feed on one device and raise for a data parallelism
+they cannot honour (``test_torch_parallel.py`` runs the one they can); the
 prefetching feed yields every batch once, in order; a run directory whose
 newest step is an orbax directory resumes from it where ``tensorstore``
 reads it and is refused where it cannot, never restarted from an older
@@ -83,34 +84,41 @@ def test_device_resident_dp_builds_the_sampling_step(tiny_config):
 
 
 _DP_CALLS = {
-    "feed_plumbing": lambda cfg, dp: drivers.feed_plumbing(cfg, dp, "cpu"),
-    "wrap_dp": lambda cfg, dp: drivers.wrap_dp(
-        cfg, source.make_train_step, dp, device="cpu"),
-    "device_resident_dp": lambda cfg, dp: drivers.device_resident_dp(
-        cfg, source.make_train_step, dp, lambda _shd: {}),
-    "batch_sharding_for": lambda cfg, dp: drivers.batch_sharding_for(dp),
+    "feed_plumbing": lambda cfg, dp, dev: drivers.feed_plumbing(cfg, dp, dev),
+    "wrap_dp": lambda cfg, dp, dev: drivers.wrap_dp(
+        cfg, source.make_train_step, dp, device=dev),
+    "device_resident_dp": lambda cfg, dp, dev: drivers.device_resident_dp(
+        cfg, source.make_train_step, dp, lambda _group: {}, device=dev),
+    "batch_sharding_for": lambda cfg, dp, dev: drivers.batch_sharding_for(
+        dp, dev),
 }
 
 
 @pytest.mark.parametrize("name", list(_DP_CALLS))
 def test_data_parallel_raises(tiny_config, monkeypatch, name):
-    """dp > 1, or a process group of more than one process, raises in
-    every function of drivers.py: none runs on one device instead."""
+    """A dp that cannot be honoured raises in every function of
+    drivers.py, and none runs on one device instead: more ranks than CUDA
+    devices on a cuda run, dp > 1 with no process group, a process group of
+    another size than dp."""
     cfg = _port_cfg(tiny_config)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _DP_CALLS[name](cfg, 2)
-    _DP_CALLS[name](cfg, 0)
+    with pytest.raises(ValueError, match="more ranks than devices"):
+        _DP_CALLS[name](cfg, max(2, torch.cuda.device_count() + 1), "cuda")
+    with pytest.raises(ValueError, match="process group has 1 rank"):
+        _DP_CALLS[name](cfg, 2, "cpu")
+    _DP_CALLS[name](cfg, 0, "cpu")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _DP_CALLS[name](cfg, 0)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
+    with pytest.raises(ValueError, match="process group has 2 rank"):
+        _DP_CALLS[name](cfg, 4, "cpu")
 
 
 def test_api_data_parallel_raises(tiny_config):
+    """``dp=2`` outside a process group of 2 ranks raises: the API runs on
+    each rank of one, it starts none."""
     cfg = _port_cfg(tiny_config)
     vols, labs = synthetic.make_dataset(0, "mri", 1, 8, 32)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group has 1 rank"):
         api.train_source(cfg, vols, labs, steps=1, dp=2, device="cpu")
 
 

@@ -63,13 +63,17 @@ def test_e2e_example_twin_runs(tmp_path):
         assert f"== {stage}" in out.stdout
 
 
-def test_e2e_example_twin_refuses_data_parallelism():
+def test_e2e_example_twin_refuses_data_parallelism(monkeypatch):
+    """``--dp 2`` outside a process group of 2 ranks (no torchrun
+    environment) raises; it never trains on one device instead."""
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     spec = importlib.util.spec_from_file_location(
         "port_e2e", os.path.join(ROOT, "mcmda_tpu_torch", "examples",
                                  "synthetic_e2e.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    with pytest.raises(ValueError, match="process group has 1 rank"):
         mod.main(["--cpu", "--dp", "2", "--source-steps", "1"])
 
 
