@@ -98,6 +98,25 @@ Phases (any failure ends the run non-zero):
    (c) a one-rank NCCL world: its T1 step bitwise the step without a
    group; two NCCL ranks on cuda:0 (the error printed); ``--dp`` beyond
    the GPUs refused.
+13. ct2mri: the reverse direction with configs/ct2mri.json as shipped
+   (plug depth rm2, critic throttle 0.9, probe every 100 steps capped to a
+   quarter of a short run, flip TTA) and the kernels asked for, at full
+   width through the CLI (see CT_ADAPT_RUNS).  (a) train-source on CT; (b)
+   adapt from it: the kernel path for 30 steps (probe ticks, selection,
+   the materialized pick, snapshots), two 5-step kernel runs (bitwise
+   equal losses), step-1 kernel/plain pairs in f32 and the shipped bf16
+   source forward (within STEP1_RTOL), launches per step;
+   ``make_adapt_step`` timed at rm2 on both paths and at rm3 from the same
+   source state (ms/step, ``measure_step``), and one step per depth with
+   the conv + moments weight gradients counted (CT_WGRADS: none for the
+   frozen higher layers at rm2) and, at rm2, the step's host
+   synchronisations (none: the throttle decides on the device); (c) the
+   EMA variant (``adapt.dam_ema=0.5``) selects a weight variant; (d)
+   ``evaluate`` of (b)'s run on the fused path (selection.json, flip TTA at
+   batch 16, bf16; 19 launches per forward batch) and ``predict`` of its
+   pick against the plain path (at least 99.5% of voxels) and an f64
+   fused conv (EXACT_SLACK); (e) the plug-depth ablation twin at toy
+   lengths, all three depths.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -612,24 +631,39 @@ def write_inputs(cfg, tmp, torch):
     return src, ada, vol_path
 
 
+def exact_conv_bn_act(x, w, scale, bias, *, dilation=1, activation="relu",
+                      residual=None):
+    """The fused conv's plain version in f64, rounded to f32: the answer
+    that both f32 versions approximate, each with its own summation
+    order."""
+    import torch
+    from mcmda_tpu_torch.kernels import fused_conv as fk
+    from mcmda_tpu_torch.ops import layers
+
+    f64 = torch.float64
+    y = layers.conv_apply({"w": w}, x, dilation=dilation, compute_dtype=f64)
+    y = y * scale.to(f64) + bias.to(f64)
+    if residual is not None:
+        y = y + residual.to(f64)
+    return fk._activate(y, activation).float()
+
+
+def predict_exact(cli, fk, argv):
+    """``predict`` (``argv``) on the fused path with every fused conv in
+    f64 (``exact_conv_bn_act``)."""
+    real = fk.conv_bn_act_reference
+    fk.conv_bn_act_reference = exact_conv_bn_act
+    try:
+        cli.cmd_predict(cli.build_parser().parse_args(argv), use_kernel=False)
+    finally:
+        fk.conv_bn_act_reference = real
+
+
 def phase_predict(cfg, torch, fk, n_sites):
     """Phase 4: full-width predict through the CLI (see RUNS); returns the
     kernel launches of the runs."""
     from mcmda_tpu_torch import cli
     from mcmda_tpu_torch.data import volumes
-    from mcmda_tpu_torch.ops import layers
-
-    def exact(x, w, scale, bias, *, dilation=1, activation="relu",
-              residual=None):
-        """The plain version in f64, rounded to f32: the answer that both
-        f32 versions approximate, each with its own summation order."""
-        f64 = torch.float64
-        y = layers.conv_apply({"w": w}, x, dilation=dilation,
-                              compute_dtype=f64)
-        y = y * scale.to(f64) + bias.to(f64)
-        if residual is not None:
-            y = y + residual.to(f64)
-        return fk._activate(y, activation).float()
 
     batches = -(-SLICES // BATCH)
     launches = 0
@@ -659,13 +693,7 @@ def phase_predict(cfg, torch, fk, n_sites):
             args = cli.build_parser().parse_args(argv + ["--out",
                                                          outs["plain"]])
             cli.cmd_predict(args, use_kernel=False)
-            real = fk.conv_bn_act_reference
-            fk.conv_bn_act_reference = exact
-            try:
-                cli.cmd_predict(cli.build_parser().parse_args(
-                    argv + ["--out", outs["exact"]]), use_kernel=False)
-            finally:
-                fk.conv_bn_act_reference = real
+            predict_exact(cli, fk, argv + ["--out", outs["exact"]])
             masks = {}
             for v, d in outs.items():
                 masks[v], sp = volumes.load_volume_with_spacing(
@@ -1289,29 +1317,45 @@ def phase_adapt(torch, wk, tk, tmp, source_dir):
     return launches, kernel_dir, time_adapt_step(torch, source_dir)
 
 
-def time_adapt_step(torch, source_dir):
-    """Median ms/step of make_adapt_step over TIMED_RUNS steps after 5
-    warm-up steps, on the kernel path and the plain path (same data and
-    source checkpoint)."""
+ADAPT_PATHS = (("kernel", ["segmenter.train_fused=pallas"]),
+               ("plain", ["data.warp=xla", "segmenter.train_fused=none"]))
+
+
+def adapt_setup(source_dir, config=CONFIG, domains=("mri", "ct")):
+    """(device-resident source and target slices of the synthetic
+    phantoms of ``domains``, source params, source BN) for an adapt step
+    from the source run ``source_dir``."""
     from mcmda_tpu_torch import cli, weights
     from mcmda_tpu_torch import config as config_mod
     from mcmda_tpu_torch.data import pipeline, synthetic, volumes
-    from mcmda_tpu_torch.train import adapt
-    from mcmda_tpu_torch.utils import profiling
 
-    base = config_mod.load_config(CONFIG)
     data = {}
-    for name, dom in (("src", "mri"), ("tgt", "ct")):
+    for name, dom in zip(("src", "tgt"), domains):
         vols, _ = synthetic.make_dataset(0, dom, 4, max(16, SIZE // 4), SIZE)
         data[name] = pipeline.to_device_arrays(
             volumes.volumes_to_slices(vols, context=3), device=DEVICE)
-    params, bn = weights.restore_source(cli._resolve_ckpt(source_dir), base,
+    params, bn = weights.restore_source(cli._resolve_ckpt(source_dir),
+                                        config_mod.load_config(config),
                                         DEVICE)
+    return data, params, bn
+
+
+def time_adapt_step(torch, source_dir, config=CONFIG, paths=ADAPT_PATHS,
+                    label="adapt step", setup=None):
+    """Median ms/step of make_adapt_step over TIMED_RUNS steps after 5
+    warm-up steps, on each of ``paths`` (the kernel path and the plain
+    path by default; same data and source checkpoint: ``setup``, else
+    ``adapt_setup``'s mri2ct one), and ``profiling.measure_step`` of each;
+    returns {path: ms/step} and {path + " profile": the measure_step
+    dict}."""
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.train import adapt
+    from mcmda_tpu_torch.utils import profiling
+
+    data, params, bn = setup or adapt_setup(source_dir, config)
     out = {}
-    for name, sets in (("kernel", ["segmenter.train_fused=pallas"]),
-                       ("plain", ["data.warp=xla",
-                                  "segmenter.train_fused=none"])):
-        cfg = config_mod.load_config(CONFIG, sets)
+    for name, sets in paths:
+        cfg = config_mod.load_config(config, sets)
         state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
         step = adapt.make_adapt_step(cfg, sample_from_device=True)
         torch.cuda.reset_peak_memory_stats()
@@ -1325,12 +1369,12 @@ def time_adapt_step(torch, source_dir):
         if not all(math.isfinite(float(v)) for v in metrics.values()):
             fail(f"timed adapt {name} step: {metrics}")
         out[name] = statistics.median(times[5:])
-        print(f"adapt step {name}: {out[name]:.2f} ms/step (median of "
+        print(f"{label} {name}: {out[name]:.2f} ms/step (median of "
               f"{TIMED_RUNS} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
-        print_profile(f"adapt step {name}",
-                      profiling.measure_step(step, state, data))
+        out[name + " profile"] = profiling.measure_step(step, state, data)
+        print_profile(f"{label} {name}", out[name + " profile"])
         del state
     return out
 
@@ -2315,6 +2359,306 @@ def phase_dp(torch, wk, tk, tmp):
     return launches
 
 
+# phase 13: the reverse direction, configs/ct2mri.json as shipped (plug
+# depth rm2: the DAM is stem + rm1 + rm2, rm3 onwards frozen higher layers
+# under batch-statistic BN; critic throttled at d_acc 0.9; a probe every
+# 100 steps, capped to a quarter of a short run; flip TTA at evaluation)
+# with the kernels asked for.  (name, extra adapt --set overrides, steps,
+# warp launches per step, conv-moments launches per step), as ADAPT_RUNS.
+CT2MRI = os.path.join(ROOT, "configs", "ct2mri.json")
+CT_SOURCE_STEPS = 10
+CT_ADAPT_RUNS = (
+    ("kernel", ["segmenter.train_fused=pallas", "run.ckpt_every=10"],
+     ADAPT_STEPS, 1, 15),
+    ("kernel-5a", ["segmenter.train_fused=pallas"], 5, 1, 15),
+    ("kernel-5b", ["segmenter.train_fused=pallas"], 5, 1, 15),
+    ("plain", ["data.warp=xla", "segmenter.train_fused=none"], 1, 0, 0),
+    ("kernel-f32", ["segmenter.train_fused=pallas", F32_SRC], 1, 1, 30),
+    ("plain-f32", ["data.warp=xla", "segmenter.train_fused=none", F32_SRC],
+     1, 0, 0),
+    ("ema", ["segmenter.train_fused=pallas", "adapt.dam_ema=0.5"], 10, 1,
+     15),
+)
+# rm2 against rm3 on the same source state and data: the weight gradients
+# the conv + moments backward computes in one step (its 15 sites sit in
+# rm3-rm6; at rm2 all are frozen, at rm3 rm3's 3 are the DAM's)
+CT_WGRADS = {"rm2": 0, "rm3": 3}
+ABLATE_ARGS = ["--device", DEVICE, "--source-steps", "20",
+               "--pretrain-steps", "2", "--adapt-steps", "10"]
+
+
+class _CountWgrad:
+    """``torch.nn.grad`` in ``kernels/train_conv.py`` with its weight
+    gradients counted."""
+
+    def __init__(self, grad):
+        self.grad, self.n = grad, 0
+
+    def conv2d_input(self, *a, **k):
+        return self.grad.conv2d_input(*a, **k)
+
+    def conv2d_weight(self, *a, **k):
+        self.n += 1
+        return self.grad.conv2d_weight(*a, **k)
+
+
+def audit_adapt_step(torch, tk, setup):
+    """One make_adapt_step at each plug depth of CT_WGRADS (ct2mri, kernel
+    path, the same ``adapt_setup``): the weight gradients of the conv +
+    moments backward, and at rm2 the host synchronisations of the step
+    (the throttle decides on the device: none may happen)."""
+    import warnings
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.train import adapt
+
+    data, params, bn = setup
+    for depth, want in CT_WGRADS.items():
+        cfg = config_mod.load_config(CT2MRI, [
+            "segmenter.train_fused=pallas", f"adapt.plug_depth={depth}"])
+        state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
+        step = adapt.make_adapt_step(cfg, sample_from_device=True)
+        state, _ = step(state, data, 0)  # warm-up
+        torch.cuda.synchronize()
+        counter = _CountWgrad(tk.nn_grad)
+        tk.nn_grad = counter
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, metrics = step(state, data, 1)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        finally:
+            tk.nn_grad = counter.grad
+        # "called a synchronizing CUDA operation" (the mode's notice that it
+        # is a prototype is no synchronisation)
+        syncs = [str(w.message)[:120] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        dam = sorted(state.dam_params)
+        print(f"ct2mri adapt step at {depth}: DAM {dam}; conv + moments "
+              f"weight gradients {counter.n} (expected {want}); host "
+              f"synchronisations in the step {len(syncs)}"
+              + (f" ({syncs[0]})" if syncs else "") + f"; d_acc "
+              f"{float(metrics['d_acc']):.4f}", flush=True)
+        if counter.n != want:
+            fail(f"ct2mri {depth}: {counter.n} conv + moments weight "
+                 f"gradients, expected {want}")
+        if depth == "rm2" and syncs:
+            fail(f"ct2mri rm2 step synchronises with the host: {syncs}")
+        del state
+
+
+def _probe_steps(out_dir):
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line)["step"] for line in f
+                if "class_ratio_dist" in line]
+
+
+def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
+    """Phase 13: the ct2mri recipe through the CLI at full width.  (a)
+    train-source on CT; (b) adapt from it (CT_ADAPT_RUNS: probe cadence,
+    selection, the pick, snapshots, repeatable losses, step-1 kernel/plain
+    pairs), make_adapt_step at rm2 timed on both paths and at rm3, the
+    weight gradients and host synchronisations of a step; (c) the EMA
+    variant's selection; (d) evaluate (flip TTA, bf16, fused) and predict of
+    the pick against the plain path and an f64 fused conv; (e) the
+    plug-depth ablation twin at toy lengths.  Returns [warp, conv +
+    moments, fused conv] launches."""
+    import contextlib
+    import io
+    from mcmda_tpu_torch import api, cli
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import synthetic, volumes
+    from mcmda_tpu_torch.scripts import ablate_plug_depth
+
+    t_phase = time.perf_counter()
+    total = [0, 0, 0]
+    kernels = (wk, tk, fk)
+    common = ["--config", CT2MRI, "--direction", "ct2mri", "--synthetic",
+              "--device", DEVICE]
+
+    def sets(*kvs):
+        return [a for kv in kvs for a in ("--set", kv)]
+
+    # (a) T1 on the labelled CT phantoms
+    src = os.path.join(tmp, "ct2mri-source")
+    rc = counted_run(torch, kernels, total, "ct2mri train-source",
+                     lambda: cli.main(["train-source", *common, "--out", src,
+                                       *sets(f"source.steps="
+                                             f"{CT_SOURCE_STEPS}",
+                                             "run.log_every=1",
+                                             "segmenter.train_fused=pallas")]),
+                     (CT_SOURCE_STEPS, 15 * CT_SOURCE_STEPS, 0))
+    losses, _ = _losses(src)
+    print(f"ct2mri train-source: loss first {losses[0]:.6f} last "
+          f"{losses[-1]:.6f}", flush=True)
+    if rc != 0 or len(losses) != CT_SOURCE_STEPS or \
+            not np.isfinite(losses).all():
+        fail(f"ct2mri train-source: rc {rc}, losses {losses}")
+
+    # (b), (c) adapt from it
+    runs = {}
+    for name, extra, steps, n_warp, n_conv in CT_ADAPT_RUNS:
+        out = os.path.join(tmp, "ct2mri-adapt-" + name)
+        rc = counted_run(
+            torch, kernels, total, f"ct2mri adapt {name} ({steps} steps)",
+            lambda: cli.main(["adapt", *common, "--source-ckpt", src,
+                              "--out", out,
+                              *sets(f"adapt.steps={steps}", "run.log_every=1",
+                                    *extra)]),
+            (n_warp * steps, n_conv * steps, 0))
+        m = _adapt_metrics(out)
+        runs[name] = m
+        with open(os.path.join(out, "selection.json")) as f:
+            sel = json.load(f)
+        probes = _probe_steps(out)
+        every = api._select_every(config_mod.load_config(CT2MRI), steps)
+        print(f"ct2mri adapt {name}: d_loss first {m['d_loss'][0]:.6f} last "
+              f"{m['d_loss'][-1]:.6f}; g_loss first {m['g_loss'][0]:.6f} "
+              f"last {m['g_loss'][-1]:.6f}; d_acc {min(m['d_acc']):.4f}-"
+              f"{max(m['d_acc']):.4f}; probes at {probes}; selected step "
+              f"{sel['best_step']} ({sel['weights']} weights)", flush=True)
+        if rc != 0 or any(len(v) != steps or not np.isfinite(v).all()
+                          for v in m.values()):
+            fail(f"ct2mri adapt {name}: rc {rc}, metrics {m}")
+        if probes != list(range(every, steps + 1, every)):
+            fail(f"ct2mri adapt {name}: probes at {probes}, expected every "
+                 f"{every}")
+        if not os.path.exists(os.path.join(
+                out, f"step_{sel['best_step']:08d}.npz")):
+            fail(f"ct2mri adapt {name}: selected step {sel['best_step']} "
+                 "not materialized")
+        if name == "ema":
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                dual = "class_ratio_dist_avg" in f.read()
+            if sel["weights"] not in ("live", "avg") or not dual:
+                fail(f"ct2mri adapt ema: selection {sel}, both variants "
+                     f"probed {dual}")
+    kernel_dir = os.path.join(tmp, "ct2mri-adapt-kernel")
+    snaps = sorted(os.listdir(os.path.join(kernel_dir, "snapshots")))
+    if snaps != ["step_00000010.png", "step_00000020.png"]:
+        fail(f"ct2mri adapt kernel: snapshots {snaps}")
+    a, b = runs["kernel-5a"], runs["kernel-5b"]
+    same = a["d_loss"] == b["d_loss"] and a["g_loss"] == b["g_loss"]
+    print(f"ct2mri adapt: two 5-step kernel runs "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail(f"seeded ct2mri adapt runs differ: {a} vs {b}")
+    for kern, plain in (("kernel-f32", "plain-f32"), ("kernel-5a", "plain")):
+        k_m, p_m = runs[kern], runs[plain]
+        rel = {k: abs(p_m[k][0] - k_m[k][0]) / abs(k_m[k][0])
+               for k in ("d_loss", "g_loss")}
+        print(f"ct2mri adapt step-1 {kern} / {plain}: d_loss "
+              f"{k_m['d_loss'][0]!r} / {p_m['d_loss'][0]!r} (rel "
+              f"{rel['d_loss']:.2e}), g_loss {k_m['g_loss'][0]!r} / "
+              f"{p_m['g_loss'][0]!r} (rel {rel['g_loss']:.2e}); held to "
+              f"{STEP1_RTOL}", flush=True)
+        if max(rel.values()) > STEP1_RTOL:
+            fail(f"ct2mri adapt step-1 {kern}/{plain} rel diff {rel}")
+    setup = adapt_setup(src, CT2MRI, ("ct", "mri"))
+    ms = time_adapt_step(
+        torch, src, CT2MRI,
+        (*((f"rm2 {n}", sets) for n, sets in ADAPT_PATHS),
+         ("rm3 kernel", ["segmenter.train_fused=pallas",
+                         "adapt.plug_depth=rm3"])),
+        label="ct2mri adapt step", setup=setup)
+    busy, n_kernels = ({k: ms[f"{k} profile"][m] for k in
+                        ("rm2 kernel", "rm3 kernel")}
+                       for m in ("device_busy_ms_per_step",
+                                 "kernels_per_step"))
+    print(f"adapt step ms/step, kernel / plain path: ct2mri rm2 "
+          f"{ms['rm2 kernel']:.2f} / {ms['rm2 plain']:.2f}; ct2mri rm3 "
+          f"(kernel) {ms['rm3 kernel']:.2f}; phase 8's mri2ct rm3 "
+          f"{rm3_ms['kernel']:.2f} / {rm3_ms['plain']:.2f}; kernel path "
+          f"device busy per step rm2 {busy['rm2 kernel']:.2f} vs rm3 "
+          f"{busy['rm3 kernel']:.2f} ms, kernels per step "
+          f"{n_kernels['rm2 kernel']:.0f} vs {n_kernels['rm3 kernel']:.0f}",
+          flush=True)
+    audit_adapt_step(torch, tk, setup)
+    del setup
+
+    # (d) evaluate and serve the pick: flip TTA (one forward batch of 16
+    # per 8 slices), bf16, fused path
+    with open(os.path.join(kernel_dir, "selection.json")) as f:
+        best = json.load(f)["best_step"]
+    selected = os.path.join(kernel_dir, f"step_{best:08d}")
+    use_pallas = sets(*SETS)
+    args = cli.build_parser().parse_args(
+        ["evaluate", *common, "--ckpt", kernel_dir, *use_pallas])
+    batches = -(-max(16, SIZE // 4) // BATCH)
+    agg = counted_run(torch, kernels, total, "ct2mri evaluate (flip TTA)",
+                      lambda: cli.cmd_evaluate(args),
+                      (0, 0, n_sites * batches))
+    mean = agg["mean"]
+    print(f"ct2mri evaluate {os.path.basename(args.ckpt)}: mean Dice "
+          f"{mean['dice']:.4f} ASSD {mean['assd']:.3f} HD95 "
+          f"{mean['hd95']:.3f} misses {mean['assd_misses']}", flush=True)
+    if args.ckpt != selected:
+        fail(f"ct2mri evaluate resolved {args.ckpt}, not {selected}")
+    if not all(math.isfinite(mean[k]) for k in ("dice", "assd", "hd95")):
+        fail(f"ct2mri evaluate: table not finite {mean}")
+    vol, _ = synthetic.make_volume(np.random.default_rng(SEED + 2), "mri",
+                                   depth=SLICES, size=SIZE)
+    vol_path = os.path.join(tmp, "in-ct2mri", "case3.npz")
+    os.makedirs(os.path.dirname(vol_path))
+    volumes.save_volume(vol_path, vol)
+    argv = ["predict", "--config", CT2MRI, "--ckpt", kernel_dir, "--input",
+            vol_path, "--device", DEVICE, *use_pallas]
+    outs = {v: os.path.join(tmp, f"pred-ct2mri-{v}")
+            for v in ("kernel", "plain", "exact")}
+    rc = counted_run(torch, kernels, total, "ct2mri predict (flip TTA)",
+                     lambda: cli.main(argv + ["--out", outs["kernel"]]),
+                     (0, 0, n_sites * (SLICES // BATCH)))
+    cli.cmd_predict(cli.build_parser().parse_args(
+        argv + ["--out", outs["plain"]]), use_kernel=False)
+    predict_exact(cli, fk, argv + ["--out", outs["exact"]])
+    masks = {v: volumes.load_volume_with_spacing(
+        os.path.join(d, "case3_pred.npz"))[0] for v, d in outs.items()}
+
+    def agree(x, y):
+        return float((masks[x] == masks[y]).mean())
+
+    kp, ke, pe = (agree("kernel", "plain"), agree("kernel", "exact"),
+                  agree("plain", "exact"))
+    counts = np.bincount(masks["kernel"].astype(np.int64).ravel(),
+                         minlength=5)
+    print(f"ct2mri predict {os.path.basename(selected)}: mask "
+          f"{list(masks['kernel'].shape)} classes {counts.tolist()}; voxel "
+          f"agreement kernel/plain {kp:.6f} "
+          f"({int((masks['kernel'] != masks['plain']).sum())} differ), "
+          f"kernel/exact {ke:.6f}, plain/exact {pe:.6f}", flush=True)
+    if rc != 0 or masks["kernel"].shape != (SLICES, SIZE, SIZE):
+        fail(f"ct2mri predict: rc {rc}, mask {masks['kernel'].shape}")
+    if kp < 0.995:
+        fail(f"ct2mri predict: kernel/plain agreement {kp} < 0.995")
+    if ke < pe - EXACT_SLACK:
+        fail(f"ct2mri predict: the kernel path is further from the f64 "
+             f"answer than the plain path ({ke} < {pe})")
+
+    # (e) the plug-depth ablation twin (configs/smoke.json: plain paths)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = counted_run(torch, kernels, total, "ct2mri ablation twin",
+                         lambda: ablate_plug_depth.main(ABLATE_ARGS),
+                         (0, 0, 0))
+    lines = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith(("no-adapt", "plug_depth=", "best depth",
+                               "ct2mri ablation"))]
+    print("ct2mri ablation twin: " + " | ".join(lines), flush=True)
+    depths = [ln.split(":")[0] for ln in lines
+              if ln.startswith("plug_depth=")]
+    if rc != 0 or depths != [f"plug_depth={d}" for d in
+                             ("rm1", "rm2", "rm3")] or \
+            not any(ln.startswith("best depth") for ln in lines):
+        fail(f"ablation twin: exit {rc}, lines {lines}")
+    print(f"ct2mri phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"warp {total[0]}, conv_stats {total[1]}, fused conv {total[2]}",
+          flush=True)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -2419,6 +2763,13 @@ def main() -> int:
         dp_w, dp_c = phase_dp(torch, wk, tk, tmp)
         warp_launches += dp_w
         conv_launches += dp_c
+
+        # 13. the ct2mri recipe and the plug-depth ablation twin
+        ct_w, ct_c, ct_f = phase_ct2mri(torch, wk, tk, fk, tmp, n_sites,
+                                        adapt_ms)
+        warp_launches += ct_w
+        conv_launches += ct_c
+        launches += ct_f
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -32,6 +32,10 @@ PROVENANCE = {"card", "settings"}
 def _env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["JAX_PLATFORMS"] = "cpu"
+    # one intra-op thread: beside the other test workers, a subprocess with
+    # a thread per core contends with them for the cores and runs many
+    # times slower than alone
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
