@@ -57,7 +57,9 @@ Phases (any failure ends the run non-zero):
    with checkpoints, snapshots and class-ratio selection; two 5-step
    kernel runs (bitwise equal losses); the shipped config; the plain path;
    one step each of the kernel and the plain path with f32 source features
-   (step-1 losses of each kernel/plain pair within STEP1_RTOL).
+   (step-1 losses of each kernel/plain pair within STEP1_RTOL); the
+   step-1 pair over STEP1_SEEDS step seeds from one state, f32 and bf16
+   source features, beside a precision control (see STEP1_SEEDS).
    Checks the launches per step, finite losses, selection.json, the
    materialized selected checkpoint and the snapshot PNGs; times
    ``make_adapt_step`` on both paths.
@@ -117,6 +119,38 @@ Phases (any failure ends the run non-zero):
    pick against the plain path (at least 99.5% of voxels) and an f64
    fused conv (EXACT_SLACK); (e) the plug-depth ablation twin at toy
    lengths, all three depths.
+14. scan: the compiled multi-step dispatch, CUDA graphs of the
+   device-resident steps (``loop.scanned_step``; the CLI / API runs of
+   phases 6-13 take it too, at their own ``pick_inner``).  (d)
+   ``train-source`` through the CLI at 25 steps per call (log steps by the
+   JAX package's rule), the source of (b); (a) T1 (configs/mri2ct.json,
+   kernel path) and (b) adapt (mri2ct at rm3; ct2mri at rm2 from a critic
+   trained ahead, so that its 0.9 throttle holds steps; ct2mri with
+   ``adapt.dam_ema=0.5``): 50 steps on the graph against 50 eager steps
+   with the same seeds, every state tensor and the last metrics
+   ``torch.equal``, the graph's replays counted on the device; each
+   capture under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of 5
+   calls of 50 steps after a warm-up call), ``measure_step`` (device busy
+   time, idle share, host launch calls per step), capture time and graph
+   pool; (d) ``adapt`` through the CLI on the graph (log and probe steps,
+   selection.json, the pick) and a train-source run stopped by SIGTERM
+   (sent to this process once its step-50 checkpoint exists) and resumed,
+   bitwise the uninterrupted run; (f) a one-rank NCCL group's step
+   captured against its eager path.
+
+Launch counts: each kernel's wrapper counts its launches on the host, a
+launch that runs at once and one that a CUDA graph capture records alike;
+a graph's replays run the recorded kernels with no wrapper call.  A
+device-resident training run's wrappers so launch 2 steps' kernels per
+graph (``on_graph``: the first call's eager step and the capture), which
+phases 6-13 hold.  Phase 14 traces its CLI runs and its graphs' calls with
+``torch.profiler`` (``traced_launches``) and holds what their replays ran
+(the kernels whose launch, by CUPTI correlation id, is a graph launch) to
+the other steps' launches, as far as a trace, which may lack records,
+can show them; the kernels line counts the wrappers' launches everywhere
+plus the replays the traces show.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -212,6 +246,21 @@ TRAIN_RUNS = (
     ("plain", ["data.warp=xla", "segmenter.train_fused=none"], 5, 0, 0),
 )
 STEP1_RTOL = 1e-3
+# phase 8 also reads the adapt step-1 kernel/plain pair over STEP1_SEEDS
+# step seeds (batch and augmentation draws) from one state.  With f32
+# source features it read 4.0e-6 to 1.2e-4 on an H100, held to
+# SPREAD_F32_RTOL; the control, the plain path with bf16 against f32
+# source features (a change of precision, not of summation order), read
+# 7.9e-4 to 3.7e-3 and must exceed SPREAD_F32_RTOL at every seed.  With
+# the shipped bf16 source features the pair read 6.9e-4 to 1.7e-3, the
+# size of the control itself: ulp-level differences of the inputs (the
+# flip folded into the warp) and of the conv + moments kernel's sums flip
+# bf16 roundings, so no limit on the bf16 pair tells the kernel from a
+# precision change; it is held to SPREAD_BF16_RTOL, 1.5x its largest
+# reading, against gross faults only.
+STEP1_SEEDS = 8
+SPREAD_F32_RTOL = 5e-4
+SPREAD_BF16_RTOL = 2.5e-3
 # phase 8: (name, extra adapt --set overrides, steps, warp launches per
 # step, conv-moments launches per step).  The shipped config runs the
 # frozen source forward in bf16 (adapt.src_feats_bf16), which takes no conv
@@ -1024,9 +1073,9 @@ def phase_train(torch, wk, tk, fk, tmp):
               f"first {losses[0]:.6f} last {losses[-1]:.6f}; val_dice "
               f"{[round(d, 4) for d in dice]}; checkpoints "
               f"{sorted(os.listdir(out))}", flush=True)
-        if got != (n_warp * steps, n_conv * steps):
+        if got != on_graph((n_warp, n_conv)):
             fail(f"train-source {name}: launches {got}, expected "
-                 f"{(n_warp * steps, n_conv * steps)}")
+                 f"{on_graph((n_warp, n_conv))}")
         if len(losses) != steps or not np.isfinite(losses).all():
             fail(f"train-source {name}: losses {losses}")
     full = runs["kernel"]
@@ -1083,7 +1132,8 @@ def print_profile(label: str, m: dict) -> None:
           f"{m['host_ms_per_step']:.2f} ms/step on the host clock, device "
           f"busy {m['device_busy_ms_per_step']:.2f} ms/step, idle "
           f"{100 * m['idle_share']:.1f}%, {m['kernels_per_step']:.0f} "
-          "kernels per step; top device time per step: "
+          f"kernels and {m['host_launches_per_step']:.2f} host launch "
+          "calls per step; top device time per step: "
           + "; ".join(f"{k[:60]} {t:.2f} ms" for k, t in m["top_kernels"]),
           flush=True)
 
@@ -1273,14 +1323,14 @@ def phase_adapt(torch, wk, tk, tmp, source_dir):
             sel = json.load(f)
         print(f"adapt {name}: {steps} steps, cli wall {wall:.1f} s; "
               f"launches warp {got[0]}, conv_stats {got[1]}; d_loss first "
-              f"{m['d_loss'][0]:.6f} last {m['d_loss'][-1]:.6f}; g_loss "
-              f"first {m['g_loss'][0]:.6f} last {m['g_loss'][-1]:.6f}; "
-              f"d_acc last {m['d_acc'][-1]:.4f}; selected step "
-              f"{sel['best_step']}; files {sorted(os.listdir(out))}",
-              flush=True)
-        if got != (n_warp * steps, n_conv * steps):
+              f"{m['d_loss'][0]:.6f} last "
+              f"{m['d_loss'][-1]:.6f}; g_loss first {m['g_loss'][0]:.6f} "
+              f"last {m['g_loss'][-1]:.6f}; d_acc last "
+              f"{m['d_acc'][-1]:.4f}; selected step {sel['best_step']}; "
+              f"files {sorted(os.listdir(out))}", flush=True)
+        if got != on_graph((n_warp, n_conv)):
             fail(f"adapt {name}: launches {got}, expected "
-                 f"{(n_warp * steps, n_conv * steps)}")
+                 f"{on_graph((n_warp, n_conv))}")
         if any(len(v) != steps or not np.isfinite(v).all()
                for v in m.values()):
             fail(f"adapt {name}: metrics {m}")
@@ -1314,7 +1364,58 @@ def phase_adapt(torch, wk, tk, tmp, source_dir):
               f"{rel['g_loss']:.2e}); held to {tol}", flush=True)
         if max(rel.values()) > tol:
             fail(f"adapt step-1 {kern}/{plain} rel diff {rel} > {tol}")
-    return launches, kernel_dir, time_adapt_step(torch, source_dir)
+    setup = adapt_setup(source_dir)
+    step1_spread(torch, setup)
+    return launches, kernel_dir, time_adapt_step(torch, source_dir,
+                                                 setup=setup)
+
+
+def step1_spread(torch, setup):
+    """Phase 8: one adapt step of the kernel and the plain path from one
+    state (``adapt_setup``'s) with each of STEP1_SEEDS step seeds, so with
+    as many batch and augmentation draws, with the shipped bf16 source
+    features and with f32 ones.  Per seed the larger relative difference
+    in d_loss and g_loss: the kernel/plain pairs held to SPREAD_F32_RTOL
+    (f32) and SPREAD_BF16_RTOL (bf16), and the control, the plain path
+    with bf16 against f32 source features (the precision of the features,
+    not the summation order, changed), which must exceed SPREAD_F32_RTOL
+    at every seed (see STEP1_SEEDS)."""
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.train import adapt
+
+    data, params, bn = setup
+    loss = {}
+    for name, sets in ADAPT_PATHS:
+        for feats, extra in (("bf16", []), ("f32", [F32_SRC])):
+            cfg = config_mod.load_config(CONFIG, [*sets, *extra])
+            state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
+            step = adapt.make_adapt_step(cfg, sample_from_device=True)
+            loss[name, feats] = [
+                {k: float(v) for k, v in step(state, data, seed)[1].items()}
+                for seed in range(STEP1_SEEDS)]
+
+    def rel(a, b):
+        return [max(abs(x[k] - y[k]) / abs(y[k]) for k in ("d_loss",
+                                                           "g_loss"))
+                for x, y in zip(loss[a], loss[b])]
+
+    pair = rel(("kernel", "bf16"), ("plain", "bf16"))
+    pair32 = rel(("kernel", "f32"), ("plain", "f32"))
+    control = rel(("plain", "bf16"), ("plain", "f32"))
+    print(f"adapt step-1 over {STEP1_SEEDS} step seeds, kernel / plain, "
+          f"largest of d_loss and g_loss rel: f32 source "
+          f"{[f'{r:.2e}' for r in pair32]} (held to {SPREAD_F32_RTOL}); "
+          f"bf16 source {[f'{r:.2e}' for r in pair]} (held to "
+          f"{SPREAD_BF16_RTOL}); control, plain bf16 / f32 source "
+          f"{[f'{r:.2e}' for r in control]} (must exceed "
+          f"{SPREAD_F32_RTOL})", flush=True)
+    if max(pair32) > SPREAD_F32_RTOL or max(pair) > SPREAD_BF16_RTOL:
+        fail(f"adapt step-1 kernel/plain over seeds: f32 {pair32}, bf16 "
+             f"{pair}")
+    if min(control) <= SPREAD_F32_RTOL:
+        fail(f"adapt step-1 control {control} within {SPREAD_F32_RTOL}: "
+             "the f32 limit cannot tell a precision change from the "
+             "summation order")
 
 
 ADAPT_PATHS = (("kernel", ["segmenter.train_fused=pallas"]),
@@ -1481,10 +1582,100 @@ def _states_equal(a, b, weights, torch):
         for k in fa)
 
 
+# the device kernel that each counted wrapper launches once per count (a
+# conv + moments launch also runs its reduce_partials_kernel), by module
+DEVICE_KERNELS = {
+    "warp": re.compile(r"\bwarp_(?:vec|staged|generic)_kernel\b"),
+    "train_conv": re.compile(r"\bconv_stats_kernel\b"),
+}
+
+
+def traced_launches(torch, kernels, fn):
+    """Run ``fn()`` with the launch counts of ``kernels`` (kernel modules)
+    at 0, under a torch.profiler trace of the device.  Returns (what ``fn``
+    returns, wall s, the wrappers' counts, each kernel's executions on the
+    device, and those of them that a CUDA graph replay ran: the ones whose
+    launch call, by CUPTI's correlation id, is a graph launch).  A wrapper
+    counts a launch that runs at once and one that a capture records; a
+    replay runs the recorded ones with no wrapper call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = [DEVICE_KERNELS[k.__name__.rsplit(".", 1)[-1]] for k in kernels]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.LAUNCHES = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    host = tuple(k.LAUNCHES for k in kernels)
+    events = prof.profiler.kineto_results.events()
+    graph_calls = {e.correlation_id() for e in events
+                   if e.device_type() == DeviceType.CPU
+                   and "GraphLaunch" in e.name()}
+    ran, replayed = [0] * len(kernels), [0] * len(kernels)
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        for i, pat in enumerate(pats):
+            if pat.search(name):
+                ran[i] += 1
+                replayed[i] += e.correlation_id() in graph_calls
+                break
+    return out, wall, host, tuple(ran), tuple(replayed)
+
+
+def on_graph(per_step, graphs=1):
+    """What the wrappers of a device-resident training run on the CUDA
+    graph launch: each graph's first call runs one step eagerly and
+    captures one, 2 steps' launches (``per_step`` per kernel) a graph; its
+    replays run the other steps with no wrapper call."""
+    return tuple(2 * graphs * p for p in per_step)
+
+
+def check_replays(label, host, replayed, per_step, steps, graphs=1):
+    """Hold a traced run (``traced_launches``) of ``steps`` steps on
+    ``graphs`` CUDA graphs: its wrappers launched ``on_graph``'s counts,
+    and its replays ran each kernel the steps need, at most the other
+    steps' launches (``per_step`` each).  The trace may lack records: on
+    an H100 (torch 2.11) one 50-step call's trace lacked 2 whole replays,
+    another an eager launch, so the replays it shows are a lower bound and
+    are not held to the full count.  Returns what the run adds to the
+    kernels line: the launches and the replays the trace shows."""
+    most = [(steps - graphs) * p for p in per_step]
+    if tuple(host) != on_graph(per_step, graphs) or any(
+            r > m or (m > 0) != (r > 0) for r, m in zip(replayed, most)):
+        fail(f"{label}: wrapper launches {tuple(host)}, replayed "
+             f"{tuple(replayed)}; expected {on_graph(per_step, graphs)} and "
+             f"up to {tuple(most)}, each kernel at least once")
+    return [h + r for h, r in zip(host, replayed)]
+
+
+# the kernels line's names of the counted modules
+LAUNCH_NAMES = {"warp": "warp", "train_conv": "conv_stats",
+                "fused_conv": "fused conv"}
+
+
+def _name(kernel):
+    return LAUNCH_NAMES[kernel.__name__.rsplit(".", 1)[-1]]
+
+
+def _launch_text(kernels, host, ran, replayed):
+    """A traced run's counts; ``ran`` is every execution of the kernel
+    that the trace holds (see ``check_replays``)."""
+    return ", ".join(f"{_name(k)} {h} launched + {p} replayed (the trace "
+                     f"holds {r})"
+                     for k, h, r, p in zip(kernels, host, ran, replayed))
+
+
 def counted_run(torch, kernels, total, label, fn, want):
     """Run ``fn`` with the launch counts of ``kernels`` (the warp, conv +
     moments and fused conv modules) at 0; print them, add them to
-    ``total`` and hold them to ``want``.  Returns what ``fn`` returns."""
+    ``total`` and hold them to ``want`` (``on_graph``'s for a
+    device-resident training run).  Returns what ``fn`` returns."""
     torch.cuda.synchronize()
     for k in kernels:
         k.LAUNCHES = 0
@@ -1495,8 +1686,9 @@ def counted_run(torch, kernels, total, label, fn, want):
     got = tuple(k.LAUNCHES for k in kernels)
     for i, n in enumerate(got):
         total[i] += n
-    print(f"{label}: wall {wall:.1f} s; launches warp {got[0]}, "
-          f"conv_stats {got[1]}, fused conv {got[2]}", flush=True)
+    print(f"{label}: wall {wall:.1f} s; launches "
+          + ", ".join(f"{_name(k)} {n}" for k, n in zip(kernels, got)),
+          flush=True)
     if got != tuple(want):
         fail(f"{label}: launches {got}, expected {tuple(want)}")
     return out
@@ -1560,13 +1752,13 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
               flush=True)
         return loss, d_loss, m["g_loss"], sel
 
-    # 1. device-resident, through the API
-    t1_want = (n_src, 15 * n_src, 0)
-    ad_want = (n_pre + n_ad, 15 * (n_pre + n_ad), 0)
+    # 1. device-resident, through the API: one CUDA graph for T1, one each
+    # for the critic pretrain and the adaptation
+    t1_graph, ad_graph = on_graph((1, 15, 0)), on_graph((1, 15, 0), 2)
     src = counted("train_source", lambda: api.train_source(
-        cfg, sv, sl, out_dir=d("src")), t1_want)
+        cfg, sv, sl, out_dir=d("src")), t1_graph)
     ad = counted("adapt", lambda: api.adapt(
-        cfg, src, sv, sl, tgt_train, out_dir=d("ad")), ad_want)
+        cfg, src, sv, sl, tgt_train, out_dir=d("ad")), ad_graph)
     api_run = check_runs("device-resident", d("src"), d("ad"), src, ad)
     batches = -(-depth // BATCH)
     table = counted("evaluate", lambda: api.evaluate(
@@ -1591,10 +1783,10 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
     common = ["--config", CONFIG, "--synthetic", "--device", DEVICE,
               *(a for kv in API_SETS for a in ("--set", kv))]
     rcs = [counted("cli train-source", lambda: cli.main(
-               ["train-source", *common, "--out", d("cli-src")]), t1_want),
+               ["train-source", *common, "--out", d("cli-src")]), t1_graph),
            counted("cli adapt", lambda: cli.main(
                ["adapt", *common, "--source-ckpt", d("cli-src"), "--out",
-                d("cli-ad")]), ad_want)]
+                d("cli-ad")]), ad_graph)]
     if any(rcs):
         fail(f"api: the CLI runs returned {rcs}")
     for a_dir, c_dir, last in ((d("src"), d("cli-src"), n_src),
@@ -1610,7 +1802,10 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
         print(f"api vs cli {os.path.basename(a_dir)}: {ckpts} bitwise "
               "equal", flush=True)
 
-    # 3. host-sampler: the prefetching feed against a synchronous one
+    # 3. host-sampler: the prefetching feed against a synchronous one, one
+    # eager step per batch
+    t1_want = (n_src, 15 * n_src, 0)
+    ad_want = (n_pre + n_ad, 15 * (n_pre + n_ad), 0)
     real_cutoff, real_feed = api._ON_DEVICE_BYTES, pipeline.prefetch_to_device
     fed = []
 
@@ -1672,7 +1867,7 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
     try:
         none_state = counted("train_source out_dir=None",
                              lambda: api.train_source(cfg, sv, sl, steps=2),
-                             (2, 30, 0))
+                             t1_graph)
     finally:
         os.chdir(cwd)
     print(f"api out_dir=None: step {int(none_state.step)}, files written "
@@ -1774,15 +1969,15 @@ def phase_quality(torch, wk, tk, fk, tmp, n_sites):
     total = [0, 0, 0]
     kernels = (wk, tk, fk)
 
-    # seed sweep: 1 warp + 15 conv + moments per T1 and adapt step; the
-    # probes run the plain eval forward
+    # seed sweep: 1 warp + 15 conv + moments per T1 and adapt step, on a
+    # CUDA graph for the source run and one for the seeds' adaptations;
+    # the probes run the plain eval forward
     path = os.path.join(tmp, "sweep.json")
-    steps = QUALITY_SOURCE + QUALITY_SEEDS * QUALITY_ADAPT
     art = counted_run(torch, kernels, total, "quality seed sweep",
                       lambda: seed_sweep.main([*SWEEP_ARGS, "--seeds",
                                                str(QUALITY_SEEDS), "--out",
                                                path]),
-                      (steps, 15 * steps, 0))
+                      on_graph((1, 15, 0), 2))
     with open(SWEEP_REFERENCE) as f:
         ref = json.load(f)
     top, seed_keys = SWEEP_NEWER
@@ -1809,8 +2004,7 @@ def phase_quality(torch, wk, tk, fk, tmp, n_sites):
                                                  "--first-seed", "1",
                                                  "--merge", "--out",
                                                  merged]),
-                        (QUALITY_SOURCE + QUALITY_ADAPT,
-                         15 * (QUALITY_SOURCE + QUALITY_ADAPT), 0))
+                        on_graph((1, 15, 0), 2))
     a, b = json.loads(json.dumps(art)), json.loads(json.dumps(again))
     same = (a["per_seed"] == b["per_seed"], a["curves"] == b["curves"])
     print(f"quality seed sweep --merge: seed 0 kept, seed 1 rerun; rows "
@@ -1828,7 +2022,7 @@ def phase_quality(torch, wk, tk, fk, tmp, n_sites):
                     ["--direction", "mri2ct", "--runs",
                      os.path.join(tmp, "bench-runs"), "--results-dir", res,
                      *(a for kv in BENCH_SETS for a in ("--set", kv))]),
-                (2 * BENCH_STEPS, 30 * BENCH_STEPS, 2 * n_sites * batches))
+                (*on_graph((1, 15), 2), 2 * n_sites * batches))
     tables = sorted(os.listdir(res))
     if tables != [f"torch_synthetic_mri2ct_{k}.json"
                   for k in ("adapted", "no_adapt")]:
@@ -2490,7 +2684,7 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
                                              f"{CT_SOURCE_STEPS}",
                                              "run.log_every=1",
                                              "segmenter.train_fused=pallas")]),
-                     (CT_SOURCE_STEPS, 15 * CT_SOURCE_STEPS, 0))
+                     on_graph((1, 15, 0)))
     losses, _ = _losses(src)
     print(f"ct2mri train-source: loss first {losses[0]:.6f} last "
           f"{losses[-1]:.6f}", flush=True)
@@ -2508,7 +2702,7 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
                               "--out", out,
                               *sets(f"adapt.steps={steps}", "run.log_every=1",
                                     *extra)]),
-            (n_warp * steps, n_conv * steps, 0))
+            on_graph((n_warp, n_conv, 0)))
         m = _adapt_metrics(out)
         runs[name] = m
         with open(os.path.join(out, "selection.json")) as f:
@@ -2659,6 +2853,383 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
     return total
 
 
+# phase 14: the compiled multi-step dispatch.  SCAN_INNER train steps per
+# call, what drivers.pick_inner gives for both shipped configs; a timed
+# path is the median of SCAN_TIMED calls after a warm-up call (the call
+# that held it against the other path), and
+# measure_step reads calls of SCAN_PROFILE steps of each path (a 50-step
+# eager call under the profiler would hold some 175,000 kernel events).
+SCAN_INNER = 50
+SCAN_TIMED = 5
+SCAN_PROFILE = 5
+SCAN_NCCL = 10
+# (d) the CLI on the graph: 100 T1 steps, then 50 critic pretrain + 100
+# adapt steps; log every 25, checkpoint every 50, probe every 25, so
+# pick_inner gives 25 steps per call for both
+SCAN_CLI_SETS = ["segmenter.train_fused=pallas", "source.steps=100",
+                 "adapt.pretrain_steps=50", "adapt.steps=100",
+                 "run.log_every=25", "run.ckpt_every=50",
+                 "adapt.select_every=25"]
+SCAN_CLI_INNER = 25
+# (b) the throttle case starts from a critic trained ahead of the DAM
+# (critic-only steps at lr_d 1e-3 with no cap, SCAN_AHEAD_CALL per call,
+# until its d_acc reaches SCAN_AHEAD_ACC or SCAN_AHEAD_CALLS calls), so
+# that the 0.9 cap holds steps
+SCAN_CRITIC_AHEAD = ["adapt.lr_d=0.001", "adapt.d_acc_cap=1.0"]
+SCAN_AHEAD_CALL, SCAN_AHEAD_CALLS, SCAN_AHEAD_ACC = 10, 30, 0.92
+
+
+def _jax_rule_steps(n, k, every, start=0):
+    """The steps at which the JAX package's loop logs a run of ``n`` train
+    steps, ``k`` per call, from ``start``."""
+    return [s for s in range(start + k - 1, n, k)
+            if s % every < k or s >= n - k]
+
+
+def _tensors_equal(torch, a, b):
+    """(all leaves bitwise equal, number of leaves, the unequal ones)."""
+    from mcmda_tpu_torch.utils import tree
+    la, lb = tree.leaves(a), tree.leaves(b)
+    bad = [i for i, (x, y) in enumerate(zip(la, lb))
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    return len(la) == len(lb) and not bad, len(la), bad
+
+
+def _scan_compare(torch, counters, label, make, cfg, state0, data, per_step,
+                  inner=SCAN_INNER, seed=4242):
+    """``inner`` steps of ``make(cfg, sample_from_device=True)`` from
+    ``state0`` through ``loop.scanned_step`` eagerly and on a CUDA graph
+    with the same seed: states and the last metrics torch.equal.  The
+    graph's call is traced: its one eager step and its capture go through
+    the wrappers (2 x ``per_step``), its ``inner`` - 1 replays run
+    ``per_step`` each on the device with no wrapper call.  Returns (graph
+    step, eager step, the graph's state, what the call adds to the kernels
+    line)."""
+    from mcmda_tpu_torch.train import loop
+
+    eager = loop.scanned_step(make(cfg, sample_from_device=True), inner)
+    graph = loop.scanned_step(make(cfg, sample_from_device=True), inner,
+                              graph=True, donate=cfg.run.donate)
+    e_state, e_m = eager(state0, data, seed)
+    (g_state, g_m), _, host, ran, replayed = traced_launches(
+        torch, counters, lambda: graph(state0, data, seed))
+    ok, n, bad = _tensors_equal(torch, g_state, e_state)
+    m_ok = set(g_m) == set(e_m) and all(torch.equal(g_m[k], e_m[k])
+                                        for k in g_m)
+    st = graph.stats
+    print(f"scan {label}: {inner} steps graph vs eager from one state: "
+          f"{n} state tensors {'bitwise equal' if ok else f'DIFFER {bad}'}"
+          f"; last metrics {'equal' if m_ok else 'DIFFER'} "
+          f"({', '.join(f'{k} {float(v)!r}' for k, v in g_m.items())}); "
+          "the graph's call (traced): "
+          + _launch_text(counters, host, ran, replayed)
+          + f"; capture {st['capture_s']:.2f} s under sync debug mode error"
+          f" (0 host synchronisations); graph pool "
+          f"{st['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    if not ok or not m_ok:
+        fail(f"scan {label}: graph and eager differ (tensors {bad}, "
+             f"metrics {g_m} vs {e_m})")
+    added = check_replays(f"scan {label}", host, replayed, per_step, inner)
+    if not all(math.isfinite(float(v)) for v in g_m.values()):
+        fail(f"scan {label}: metrics {g_m}")
+    del e_state
+    return graph, eager, g_state, added
+
+
+def _scan_time(torch, label, step, state, data, make, cfg, graph: bool):
+    """ms/step of ``step`` (SCAN_INNER steps per call; median of SCAN_TIMED
+    calls; ``_scan_compare``'s call of it was the warm-up), then
+    measure_step of SCAN_PROFILE-step calls of the same path.  Returns
+    (dict, last state)."""
+    from mcmda_tpu_torch.train import loop
+    from mcmda_tpu_torch.utils import profiling
+
+    times = []
+    for i in range(SCAN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data, 100 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000 / SCAN_INNER)
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        fail(f"scan {label}: metrics {metrics}")
+    short = loop.scanned_step(make(cfg, sample_from_device=True),
+                              SCAN_PROFILE, graph=graph,
+                              donate=cfg.run.donate)
+    state, _ = short(state, data, 7)  # the capture, outside the profile
+    prof = profiling.measure_step(short, state, data, n=1,
+                                  inner_steps=SCAN_PROFILE)
+    out = {"ms_per_step": statistics.median(times), "profile": prof}
+    if graph:
+        # the capture of one step, as in the timed graph, but untraced
+        out["capture_s"] = short.stats["capture_s"]
+        out["pool_mib"] = short.stats["pool_bytes"] / 2**20
+    print(f"scan {label}: {out['ms_per_step']:.2f} ms/step (median of "
+          f"{SCAN_TIMED} calls of {SCAN_INNER} after the warm-up call: "
+          f"{[round(t, 2) for t in times]})", flush=True)
+    print_profile(f"scan {label}", prof)
+    del short
+    return out, state
+
+
+def phase_scan(torch, wk, tk, tmp):
+    """Phase 14: the compiled multi-step dispatch on the card.  (d1)
+    train-source through the CLI on the graph (25 steps per call), which is
+    also the source of (b); (a) T1 and (b) adapt (mri2ct at rm3; ct2mri at
+    rm2 with the throttle holding steps, and with dam_ema=0.5): 50 steps on
+    the graph against 50 eager steps with the same seeds, bitwise; (c) both
+    timed eager and on the graph; (d2) adapt through the CLI on the graph
+    (log, probe and checkpoint steps, selection), and a train-source run
+    stopped by SIGTERM and resumed, bitwise the uninterrupted run; (f) a
+    one-rank NCCL step captured against its eager path.  The CLI runs of
+    (d1) and (d2) and the graphs' calls of (a), (b) and (f) are traced
+    (``traced_launches``).  Returns [warp, conv + moments]: the wrappers'
+    launches of those runs, of (c)'s timed calls and of (d3), and the
+    replays of the traced runs."""
+    import contextlib
+    import io
+    import signal
+    import threading
+    import torch.distributed as dist
+    from mcmda_tpu_torch import cli, weights
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import pipeline, synthetic, volumes
+    from mcmda_tpu_torch.train import adapt, drivers, loop, source
+    from mcmda_tpu_torch.utils import checkpoint, device as device_mod
+
+    t_phase = time.perf_counter()
+    device_mod.resolve(DEVICE, deterministic=True)
+    torch.cuda.empty_cache()
+    counters = (wk, tk)
+    launches = [0, 0]
+    card = device_mod.card()
+
+    def count(added):
+        launches[0] += added[0]
+        launches[1] += added[1]
+
+    def traced_cli(label, argv, n_steps, graphs, log):
+        """``cli.main(argv)`` traced, its stdout into ``log``: (rc, wall
+        s, the counts' text); ``n_steps`` steps on ``graphs`` graphs."""
+        def run():
+            with contextlib.redirect_stdout(log):
+                return cli.main(argv)
+        rc, wall, host, ran, replayed = traced_launches(torch, counters, run)
+        count(check_replays(label, host, replayed, (1, 15), n_steps, graphs))
+        return rc, wall, _launch_text(counters, host, ran, replayed)
+
+    # (d1) train-source through the CLI, on the graph
+    src = os.path.join(tmp, "scan-source")
+    common = ["--config", CONFIG, "--synthetic", "--device", DEVICE]
+    cli_sets = [a for kv in SCAN_CLI_SETS for a in ("--set", kv)]
+    log = io.StringIO()
+    n_src = 100
+    rc, wall, counts = traced_cli(
+        "scan (d) train-source", ["train-source", *common, *cli_sets,
+                                  "--out", src], n_src, 1, log)
+    text = log.getvalue()
+    with open(os.path.join(src, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r["step"] for r in recs if "loss" in r]
+    want = _jax_rule_steps(n_src, SCAN_CLI_INNER, 25)
+    feed = [ln for ln in text.splitlines() if ln.startswith("feed path:")]
+    print(f"scan (d) train-source via the CLI: {feed}; wall {wall:.1f} s; "
+          f"loss steps {steps} (the JAX rule: {want}); val_dice steps "
+          f"{[r['step'] for r in recs if 'val_dice' in r]}; {counts}; "
+          "checkpoints "
+          f"{sorted(n for n in os.listdir(src) if n.startswith('step_'))}",
+          flush=True)
+    if rc != 0 or steps != want or feed != [
+            f"feed path: device-resident; {SCAN_CLI_INNER} steps per call "
+            "on a CUDA graph"]:
+        fail(f"scan (d) train-source: rc {rc}, steps {steps}, {feed}")
+
+    marks = [("(d) train-source", time.perf_counter() - t_phase)]
+
+    # (a) T1 on the graph against eager, then (c) both timed
+    cfg = config_mod.load_config(CONFIG, ["segmenter.train_fused=pallas"])
+    vols, labs = synthetic.make_dataset(0, "mri", 4, max(16, SIZE // 4), SIZE)
+    data = pipeline.to_device_arrays(
+        volumes.volumes_to_slices(vols, labs, context=3, drop_empty=True),
+        cfg.data.num_classes, DEVICE)
+    state0 = source.init_state(cfg.run.seed, cfg, DEVICE)
+    graph, eager, state, added = _scan_compare(
+        torch, counters, "(a) T1 mri2ct", source.make_train_step, cfg,
+        state0, data, (1, 15))
+    count(added)
+    timing = {}
+    wk.LAUNCHES = tk.LAUNCHES = 0
+    timing["T1 eager"], _ = _scan_time(torch, "(c) T1 eager", eager, state0,
+                                       data, source.make_train_step, cfg,
+                                       False)
+    timing["T1 graph"], _ = _scan_time(torch, "(c) T1 graph", graph, state,
+                                       data, source.make_train_step, cfg,
+                                       True)
+    count((wk.LAUNCHES, tk.LAUNCHES))
+    del graph, eager, state, state0
+    marks.append(("(a) + (c) T1", time.perf_counter() - t_phase))
+
+    # (b) adapt on the graph against eager: mri2ct rm3, ct2mri rm2 with the
+    # throttle holding steps, ct2mri rm2 with the weight average
+    mri_data, params, bn = adapt_setup(src, CONFIG)
+    ct_data = {"src": mri_data["tgt"], "tgt": mri_data["src"]}
+    cases = (("(b) adapt mri2ct rm3", CONFIG, [], mri_data, False),
+             ("(b) adapt ct2mri rm2 throttle 0.9", CT2MRI, [], ct_data,
+              True),
+             ("(b) adapt ct2mri rm2 dam_ema=0.5", CT2MRI,
+              ["adapt.dam_ema=0.5"], ct_data, False))
+    for label, path, extra, adata, ahead in cases:
+        acfg = config_mod.load_config(
+            path, ["segmenter.train_fused=pallas", *extra])
+        a0 = adapt.init_state(acfg.run.seed + 2, acfg, params, bn)
+        if ahead:
+            pre_cfg = config_mod.load_config(
+                path, ["segmenter.train_fused=pallas", *SCAN_CRITIC_AHEAD])
+            pre = loop.scanned_step(adapt.make_adapt_step(
+                pre_cfg, train_g=False, sample_from_device=True),
+                SCAN_AHEAD_CALL)
+            accs = []
+            for i in range(SCAN_AHEAD_CALLS):
+                a0, pm = pre(a0, adata, 99 + i)
+                accs.append(round(float(pm["d_acc"]), 4))
+                if accs[-1] >= SCAN_AHEAD_ACC:
+                    break
+            print(f"scan {label}: the critic trained ahead, "
+                  f"{SCAN_AHEAD_CALL} critic-only steps per call: d_acc "
+                  f"{accs}", flush=True)
+        c0 = int(a0.opt_d_state[0].count)
+        graph, eager, state, added = _scan_compare(
+            torch, counters, label, adapt.make_adapt_step, acfg, a0, adata,
+            (1, 15))
+        count(added)
+        held = SCAN_INNER - (int(state.opt_d_state[0].count) - c0)
+        print(f"scan {label}: the critic throttle (d_acc_cap "
+              f"{acfg.adapt.d_acc_cap}) held {held} of {SCAN_INNER} steps",
+              flush=True)
+        if ahead and held < 1:
+            fail(f"scan {label}: the throttle held no step")
+        if path == CONFIG:
+            wk.LAUNCHES = tk.LAUNCHES = 0
+            timing["adapt eager"], _ = _scan_time(
+                torch, "(c) adapt mri2ct rm3 eager", eager, a0, adata,
+                adapt.make_adapt_step, acfg, False)
+            timing["adapt graph"], _ = _scan_time(
+                torch, "(c) adapt mri2ct rm3 graph", graph, state, adata,
+                adapt.make_adapt_step, acfg, True)
+            count((wk.LAUNCHES, tk.LAUNCHES))
+        del graph, eager, state, a0
+
+    marks.append(("(b) + (c) adapt", time.perf_counter() - t_phase))
+    rows = []
+    for name, t in timing.items():
+        p = t["profile"]
+        rows.append(f"{name} {t['ms_per_step']:.2f} ms/step, busy "
+                    f"{p['device_busy_ms_per_step']:.2f} ms, idle "
+                    f"{100 * p['idle_share']:.1f}%, host launches "
+                    f"{p['host_launches_per_step']:.2f}/step"
+                    + (f", capture {t['capture_s']:.2f} s, pool "
+                       f"{t['pool_mib']:.0f} MiB" if "capture_s" in t
+                       else ""))
+    print(f"scan (c) on {card}: " + "; ".join(rows), flush=True)
+
+    # (d2) adapt through the CLI on the graph
+    ad = os.path.join(tmp, "scan-adapt")
+    # the critic pretrain and the adaptation: a graph each
+    rc, wall, counts = traced_cli(
+        "scan (d) adapt", ["adapt", *common, *cli_sets, "--source-ckpt", src,
+                           "--out", ad], 150, 2, io.StringIO())
+    with open(os.path.join(ad, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r["step"] for r in recs if "d_loss" in r]
+    want = (_jax_rule_steps(50, SCAN_CLI_INNER, 25)
+            + _jax_rule_steps(150, SCAN_CLI_INNER, 25, start=50))
+    probes = [r["step"] for r in recs if "class_ratio_dist" in r]
+    with open(os.path.join(ad, "selection.json")) as f:
+        best = json.load(f)["best_step"]
+    names = sorted(os.listdir(ad))
+    print(f"scan (d) adapt via the CLI: wall {wall:.1f} s; d_loss steps "
+          f"{steps} (the JAX rule: {want}); probe steps {probes}; selected "
+          f"step {best}; {counts}; wrote {names}", flush=True)
+    if rc != 0 or steps != want or probes != list(range(75, 151, 25)) or \
+            f"step_{best:08d}.npz" not in names:
+        fail(f"scan (d) adapt: rc {rc}, steps {steps}, probes {probes}, "
+             f"best {best}, {names}")
+
+    # (d3) train-source stopped by SIGTERM once its step-50 checkpoint
+    # exists (a watcher thread signals this process; the loop's guard
+    # catches it), resumed, against (d1)'s uninterrupted run
+    cut = os.path.join(tmp, "scan-source-cut")
+    argv = ["train-source", *common, *cli_sets, "--out", cut]
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.01):
+            if os.path.exists(os.path.join(cut, "step_00000050.npz")):
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    # (not traced: the two runs' kernels are (d1)'s; the kernels line
+    # takes their wrappers' launches)
+    log = io.StringIO()
+    wk.LAUNCHES = tk.LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(log):
+            rc_cut = cli.main(argv)
+    finally:
+        done.set()
+        watcher.join()
+    out = log.getvalue()
+    stopped = [ln for ln in out.splitlines() if "preemption signal" in ln]
+    kept = checkpoint.latest_step(cut)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    count((wk.LAUNCHES, tk.LAUNCHES))
+    final = f"step_{n_src:08d}.npz"
+    a = weights.read_checkpoint(os.path.join(src, final))
+    b = weights.read_checkpoint(os.path.join(cut, final))
+    same = set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"scan (d) train-source stopped by SIGTERM: {stopped}, latest "
+          f"checkpoint {kept}; resumed to {n_src}: final checkpoint "
+          f"{'bitwise equal to' if same else 'DIFFERS from'} the "
+          f"uninterrupted run's; the two runs' wrapper launches warp "
+          f"{wk.LAUNCHES}, conv_stats {tk.LAUNCHES}", flush=True)
+    if len(stopped) != 1 or kept is None or kept >= n_src or rc_cut != 0 \
+            or rc != 0 or not same:
+        fail(f"scan (d) SIGTERM resume: {stopped}, kept {kept}, rc {rc}, "
+             f"equal {same}")
+
+    marks.append(("(d) adapt + SIGTERM", time.perf_counter() - t_phase))
+
+    # (f) a one-rank NCCL group: the group's step captured
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        mode = drivers.dispatch(DEVICE, group)
+        if mode != "graph":
+            fail(f"scan (f): NCCL dispatch {mode}")
+
+        def group_step(c, **kw):
+            return source.make_train_step(c, group=group, **kw)
+
+        state0 = source.init_state(cfg.run.seed, cfg, DEVICE)
+        graph, eager, state, added = _scan_compare(
+            torch, counters, "(f) T1 one-rank NCCL group", group_step, cfg,
+            state0, data, (1, 15), inner=SCAN_NCCL)
+        count(added)
+        del graph, eager, state, state0
+    finally:
+        dist.destroy_process_group()
+    marks.append(("(f) NCCL", time.perf_counter() - t_phase))
+    print(f"scan phase: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} by {t:.1f} s" for k, t in marks)
+          + f"); launches + replays warp {launches[0]}, conv_stats "
+          f"{launches[1]}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2770,6 +3341,11 @@ def main() -> int:
         warp_launches += ct_w
         conv_launches += ct_c
         launches += ct_f
+
+        # 14. the compiled multi-step dispatch: CUDA graphs of the steps
+        sc_w, sc_c = phase_scan(torch, wk, tk, tmp)
+        warp_launches += sc_w
+        conv_launches += sc_c
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -55,24 +55,33 @@ def load_config(path: str | None = None) -> ExperimentConfig:
 _ON_DEVICE_BYTES = 1 << 30
 
 
-def _source_step_feed(cfg, ds, dp, device):
-    """(step, feed, device-resident?) of source training over the slice
-    dataset ``ds`` (this rank's shard of it under data parallelism): the one
-    place the cutoff picks the feed."""
+def _source_step_feed(cfg, ds, dp, device, n_steps: int):
+    """(step, feed, device-resident?, inner) of ``n_steps`` of source
+    training over the slice dataset ``ds`` (this rank's shard of it under
+    data parallelism): the one place the cutoff picks the feed.  A
+    device-resident step runs ``inner`` train steps per call
+    (``drivers.pick_inner``, as the JAX package picks it); a host-sampler
+    step one.  Prints the ``feed path:`` line."""
     ds = drivers.shard(ds, dp, device)
     on_device = ds.images.nbytes < _ON_DEVICE_BYTES
     if on_device:
+        inner = drivers.pick_inner(n_steps, cfg.run.log_every,
+                                   cfg.run.ckpt_every)
         step, device_data = drivers.device_resident_dp(
-            cfg, source_mod.make_train_step, dp,
+            cfg, source_mod.make_train_step, dp, inner,
             lambda _group: pipeline.to_device_arrays(
                 ds, cfg.data.num_classes, device), device=device)
-        return step, itertools.repeat(device_data), True
-    step, global_batch, to_global = drivers.wrap_dp(
-        cfg, source_mod.make_train_step, dp, device=device)
-    sampler = iter(pipeline.BatchSampler(
-        ds, global_batch, seed=drivers.host_seed(cfg.run.seed + 1),
-        num_classes=cfg.data.num_classes))
-    return step, to_global(sampler), False
+        feed = itertools.repeat(device_data)
+    else:
+        inner = 1
+        step, global_batch, to_global = drivers.wrap_dp(
+            cfg, source_mod.make_train_step, dp, device=device)
+        sampler = iter(pipeline.BatchSampler(
+            ds, global_batch, seed=drivers.host_seed(cfg.run.seed + 1),
+            num_classes=cfg.data.num_classes))
+        feed = to_global(sampler)
+    print(drivers.feed_line(on_device, inner, dp, device), flush=True)
+    return step, feed, on_device, inner
 
 
 def train_source(cfg: ExperimentConfig, volumes: Sequence[np.ndarray],
@@ -89,13 +98,15 @@ def train_source(cfg: ExperimentConfig, volumes: Sequence[np.ndarray],
                                drop_empty=True)
     state = source_mod.init_state(cfg.run.seed, cfg, device)
     state, start = loop.maybe_resume(out_dir, state)
-    step, feed, _ = _source_step_feed(cfg, ds, dp, device)
+    n_steps = steps or cfg.source.steps
+    step, feed, _, inner = _source_step_feed(cfg, ds, dp, device, n_steps)
     logger = mlog.MetricsLogger(os.path.join(out_dir, "metrics.jsonl")
                                 if out_dir else None, echo=False)
-    state, _ = loop.run(step, state, feed, steps or cfg.source.steps,
+    state, _ = loop.run(step, state, feed, n_steps,
                         seed=cfg.run.seed, log_every=cfg.run.log_every,
                         ckpt_every=cfg.run.ckpt_every if out_dir else 0,
-                        ckpt_dir=out_dir, logger=logger, start_step=start)
+                        ckpt_dir=out_dir, logger=logger, start_step=start,
+                        inner_steps=inner)
     logger.close()
     return state
 
@@ -122,15 +133,23 @@ def _select_every(cfg, n_adapt: int) -> int:
                max(1, n_adapt // 4))
 
 
-def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device):
-    """(mk_step(**kw), make_feed(), device-resident?) of adaptation: the
-    pretrain and the main phase each make their step and their feed; on the
-    host-sampler path both feeds draw from one pair of sampler streams.
-    Under data parallelism both datasets are this rank's shards."""
+def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device, n_pre: int,
+                     n_adapt: int, sel_every: int):
+    """(mk_step(**kw), make_feed(), device-resident?, inner) of
+    adaptation: the pretrain and the main phase each make their step and
+    their feed; on the host-sampler path both feeds draw from one pair of
+    sampler streams.  A device-resident step runs ``inner`` train steps per
+    call, ``drivers.pick_inner`` of the two phases' lengths and the
+    cadences, as the JAX package picks it; a host-sampler step one.  Under
+    data parallelism both datasets are this rank's shards.  Prints the
+    ``feed path:`` line."""
     src_ds = drivers.shard(src_ds, dp, device)
     tgt_ds = drivers.shard(tgt_ds, dp, device)
     on_device = (src_ds.images.nbytes
                  + tgt_ds.images.nbytes) < _ON_DEVICE_BYTES
+    inner = drivers.pick_inner(n_pre, n_adapt, cfg.run.log_every,
+                               cfg.run.ckpt_every, sel_every) \
+        if on_device else 1
     if on_device:
         device_data = {
             "src": pipeline.to_device_arrays(src_ds, device=device),
@@ -138,7 +157,7 @@ def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device):
 
         def mk_step(**kw):
             return drivers.device_resident_dp(
-                cfg, adapt_mod.make_adapt_step, dp,
+                cfg, adapt_mod.make_adapt_step, dp, inner,
                 lambda _group: device_data, device=device, **kw)[0]
 
         def make_feed():
@@ -159,7 +178,8 @@ def _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device):
                      for a, b in zip(s_it, t_it))
             return to_global(pairs)
 
-    return mk_step, make_feed, on_device
+    print(drivers.feed_line(on_device, inner, dp, device), flush=True)
+    return mk_step, make_feed, on_device, inner
 
 
 def _materialize_pick(out_dir, state, select_probe, selector) -> bool:
@@ -216,13 +236,14 @@ def adapt(cfg: ExperimentConfig, source_state: source_mod.SourceState,
     n_adapt = steps or cfg.adapt.steps
     probe_images = _probe_images(tgt_ds)
     sel_every = _select_every(cfg, n_adapt)
-    mk_step, make_feed, _ = _adapt_step_feed(cfg, src_ds, tgt_ds, dp, device)
+    mk_step, make_feed, _, inner = _adapt_step_feed(
+        cfg, src_ds, tgt_ds, dp, device, n_pre, n_adapt, sel_every)
 
     if n_pre and start < n_pre:
         state, _ = loop.run(mk_step(train_g=False), state, make_feed(),
                             n_pre, seed=cfg.run.seed + 5,
                             log_every=cfg.run.log_every, logger=logger,
-                            start_step=start)
+                            start_step=start, inner_steps=inner)
         start = n_pre
     # unsupervised checkpoint selection (class-ratio prior), the CLI's
     # machinery: scores the live DAM and, when weight averaging is on, the
@@ -237,6 +258,7 @@ def adapt(cfg: ExperimentConfig, source_state: source_mod.SourceState,
                         seed=cfg.run.seed + 6, log_every=cfg.run.log_every,
                         ckpt_every=cfg.run.ckpt_every if out_dir else 0,
                         ckpt_dir=out_dir, logger=logger, start_step=start,
+                        inner_steps=inner,
                         probe_every=sel_every if out_dir else 0,
                         probe=select_probe if out_dir else None,
                         protect_steps=select_probe.protect_steps)

@@ -247,10 +247,8 @@ def cmd_train_source(args):
         start = int(state.step)
     else:
         state, start = loop.maybe_resume(args.out, state)
-    step_fn, feed, on_device = api._source_step_feed(cfg, ds, args.dp, device)
-    sharded = drivers.dp_group(args.dp, device) is not None
-    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}"
-          f"{' (per-rank sharded)' if sharded else ''}", flush=True)
+    step_fn, feed, _, inner = api._source_step_feed(cfg, ds, args.dp, device,
+                                                    cfg.source.steps)
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
     # one forward for every callback: the state enters as fwd_args
@@ -272,7 +270,8 @@ def cmd_train_source(args):
     _, last = loop.run(step_fn, state, feed, cfg.source.steps,
                        seed=cfg.run.seed, log_every=cfg.run.log_every,
                        ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
-                       logger=logger, start_step=start, callback=val_cb)
+                       logger=logger, start_step=start, callback=val_cb,
+                       inner_steps=inner)
     logger.close()
     _done(args.out, last)
     return 0
@@ -310,11 +309,10 @@ def cmd_adapt(args):
         start = int(state.step)
     else:
         state, start = loop.maybe_resume(args.out, state)
-    mk_step, make_feed, on_device = api._adapt_step_feed(cfg, src_ds, tgt_ds,
-                                                         args.dp, device)
-    sharded = drivers.dp_group(args.dp, device) is not None
-    print(f"feed path: {'device-resident' if on_device else 'host-sampler'}"
-          f"{' (per-rank sharded)' if sharded else ''}", flush=True)
+    sel_every = api._select_every(cfg, cfg.adapt.steps)
+    mk_step, make_feed, _, inner = api._adapt_step_feed(
+        cfg, src_ds, tgt_ds, args.dp, device, cfg.adapt.pretrain_steps,
+        cfg.adapt.steps, sel_every)
 
     logger = mlog.MetricsLogger(os.path.join(args.out, "metrics.jsonl"),
                                 tensorboard_dir=os.path.join(args.out, "tb"))
@@ -351,7 +349,7 @@ def cmd_adapt(args):
         state, _ = loop.run(mk_step(train_g=False), state, make_feed(),
                             cfg.adapt.pretrain_steps, seed=cfg.run.seed + 5,
                             log_every=cfg.run.log_every, logger=logger,
-                            start_step=start)
+                            start_step=start, inner_steps=inner)
         start = cfg.adapt.pretrain_steps
     state, last = loop.run(mk_step(), state, make_feed(),
                            cfg.adapt.pretrain_steps + cfg.adapt.steps,
@@ -359,9 +357,8 @@ def cmd_adapt(args):
                            log_every=cfg.run.log_every,
                            ckpt_every=cfg.run.ckpt_every, ckpt_dir=args.out,
                            logger=logger, start_step=start,
-                           callback=snapshot_cb,
-                           probe_every=api._select_every(cfg,
-                                                         cfg.adapt.steps),
+                           callback=snapshot_cb, inner_steps=inner,
+                           probe_every=sel_every,
                            probe=select_probe,
                            protect_steps=select_probe.protect_steps)
     select_probe.finalize()  # the last deferred tick + the smoothing tail

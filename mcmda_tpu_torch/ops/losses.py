@@ -12,6 +12,8 @@ per-shard means; the adapt step averages their gradients."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mcmda_tpu_torch.parallel import dp
@@ -28,13 +30,21 @@ def weighted_cross_entropy(logits, labels_onehot, class_weights=None,
         freq = dp.global_mean(labels_onehot.mean((0, 1, 2)), group)  # [C]
         class_weights = 1.0 / (freq + 1e-3)
         class_weights = class_weights / class_weights.sum()
-    w = torch.as_tensor(class_weights, dtype=torch.float32,
-                        device=logits.device)
+    w = (class_weights if isinstance(class_weights, torch.Tensor)
+         else _class_weights(tuple(class_weights), logits.device))
     pix_w = (labels_onehot * w).sum(-1)  # [N,H,W]
     xent = -(labels_onehot * logp).sum(-1)
     num = dp.global_sum((pix_w * xent).sum(), group)
     den = dp.global_sum(pix_w.sum(), group)
     return num / (den + 1e-8)
+
+
+@functools.lru_cache(maxsize=None)
+def _class_weights(values: tuple, device) -> torch.Tensor:
+    """Configured class weights on ``device``, copied there once: a copy
+    from the host inside a step would stop the step's capture as a CUDA
+    graph."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def soft_dice_loss(probs, labels_onehot, smooth: float = 1.0,

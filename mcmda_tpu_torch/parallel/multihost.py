@@ -25,6 +25,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from mcmda_tpu_torch.utils.tree import leaves, unflatten
+
 
 def world() -> tuple[int, int]:
     """(rank, world size) of the initialised process group, else (0, 1)."""
@@ -121,31 +123,11 @@ def shard_dataset(ds, n_total_devices: int):
         volume_ids=ds.volume_ids[lo:hi], slice_ids=ds.slice_ids[lo:hi])
 
 
-def map_tensors(fn, obj):
-    """``fn`` applied to every tensor of a state: dataclasses, dicts,
-    (named) tuples and lists are rebuilt around the results, anything else
-    (None, numbers) is kept."""
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{
-            f.name: map_tensors(fn, getattr(obj, f.name))
-            for f in dataclasses.fields(obj)})
-    if isinstance(obj, dict):
-        return {k: map_tensors(fn, v) for k, v in obj.items()}
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(map_tensors(fn, v) for v in obj))
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(map_tensors(fn, v) for v in obj)
-    return obj
-
-
 def replicate(tree, group=None):
     """Rank 0's copy of a state on every rank of ``group``: one broadcast
     per (dtype, device) of the flattened tensors.  Returns new tensors; the
     input is not written."""
-    ts = []
-    map_tensors(lambda t: ts.append(t), tree)
+    ts = leaves(tree)
     new = [None] * len(ts)
     for key in dict.fromkeys((t.dtype, t.device) for t in ts):
         idx = [i for i, t in enumerate(ts) if (t.dtype, t.device) == key]
@@ -155,8 +137,7 @@ def replicate(tree, group=None):
         for i in idx:
             new[i] = flat[off:off + ts[i].numel()].view_as(ts[i])
             off += ts[i].numel()
-    it = iter(new)
-    return map_tensors(lambda _t: next(it), tree)
+    return unflatten(tree, new)
 
 
 def ensure_replicated(tree, group=None):
@@ -171,4 +152,5 @@ def fetch_replicated(tree):
     """The state as host numpy arrays.  In JAX a replicated global array is
     read through one addressable shard; here every rank's tensors are its
     own full copy, so this is a plain copy to the host."""
-    return map_tensors(lambda t: t.detach().cpu().numpy(), tree)
+    return unflatten(tree, [t.detach().cpu().numpy()
+                            for t in leaves(tree)])

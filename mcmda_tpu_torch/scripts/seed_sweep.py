@@ -20,12 +20,15 @@ ensemble candidates, and mean +/- spread aggregates over seeds.  The
 output is rewritten after every seed; ``--first-seed`` with ``--merge``
 resumes a sweep or adds seeds.
 
-Where it differs from the JAX script: the ``ev`` steps between two probes
-run in a Python loop on the device-resident data (the JAX script fuses them
-into one ``lax.scan`` dispatch), each step seeded from (1000 + seed, step)
-by ``utils/prng.py``, so trajectories match the JAX package's only in
-distribution; the probes are torch functions on the device with one small
-read-back each; the artifact also records the card and the precision pins.
+Source training and the ``ev`` steps between two probes run as
+``loop.scanned_step`` on the device-resident data, as the JAX script's
+``lax.scan`` dispatches do: on a GPU a CUDA graph of one step replayed
+``inner`` times per call (``drivers.pick_inner`` of the length, at most
+50: the JAX script's 50 at the shipped lengths).  Where it differs from
+the JAX script: the seeds are ``utils/prng.py``'s, so trajectories match
+the JAX package's only in distribution; the probes are torch functions on
+the device with one small read-back each; the artifact also records the
+card, the precision pins and the dispatch (``settings``).
 
 Usage (one H100: a source run of 20,000 steps, then about 15 minutes per
 seed at the shipped lengths)::
@@ -51,7 +54,7 @@ import torch
 
 from mcmda_tpu_torch import config as config_mod
 from mcmda_tpu_torch.data import pipeline, synthetic, volumes as vio
-from mcmda_tpu_torch.train import adapt as adapt_mod, loop, \
+from mcmda_tpu_torch.train import adapt as adapt_mod, drivers, loop, \
     source as source_mod
 from mcmda_tpu_torch.utils import device as device_mod, prng, tree
 
@@ -161,11 +164,16 @@ def main(argv=None) -> dict:
                                    context=cfg.data.context_slices,
                                    drop_empty=True)
     s_state = source_mod.init_state(cfg.run.seed, cfg, device)
-    s_step = source_mod.make_train_step(cfg, sample_from_device=True)
+    graph = drivers.dispatch(device) == "graph"
+    inner_src = drivers.pick_inner(cfg.source.steps)
+    s_step = loop.scanned_step(
+        source_mod.make_train_step(cfg, sample_from_device=True), inner_src,
+        graph=graph, donate=cfg.run.donate)
     s_state, _ = loop.run(
         s_step, s_state,
         itertools.repeat(pipeline.to_device_arrays(src_ds, nc, device)),
-        cfg.source.steps, seed=cfg.run.seed, log_every=0)
+        cfg.source.steps, seed=cfg.run.seed, log_every=0,
+        inner_steps=inner_src)
     print(f"[sweep] source done in {time.time() - t0:.0f}s", flush=True)
 
     # test volume as device-resident stacks + labels (-1 on padding rows)
@@ -244,15 +252,22 @@ def main(argv=None) -> dict:
                    "tgt": pipeline.to_device_arrays(tgt_ds, device=device)}
     ev = args.eval_every or cfg.adapt.select_every or 250
     n_blocks = cfg.adapt.steps // ev
-    a_step = adapt_mod.make_adapt_step(cfg, sample_from_device=True)
+    inner_ad = drivers.pick_inner(ev)
+    calls = ev // inner_ad
+    a_step = loop.scanned_step(
+        adapt_mod.make_adapt_step(cfg, sample_from_device=True), inner_ad,
+        graph=graph, donate=cfg.run.donate)
+    dispatch = {"graph": graph, "inner_source": inner_src,
+                "inner_adapt": inner_ad, "donate": cfg.run.donate}
+    print(f"[sweep] dispatch: {dispatch}", flush=True)
 
     def block(state, root, blk):
-        """``ev`` adaptation steps, step s seeded from (root, s); metrics
-        of the last step stay on the device."""
+        """``ev`` adaptation steps, ``inner_ad`` per call, call c seeded
+        from (root, c); metrics of the last step stay on the device."""
         metrics = {}
-        for s in range(blk * ev, (blk + 1) * ev):
+        for c in range(blk * calls, (blk + 1) * calls):
             state, metrics = a_step(state, device_data,
-                                    prng.step_key(root, s))
+                                    prng.step_key(root, c))
         return state, metrics
 
     @torch.no_grad()
@@ -295,7 +310,8 @@ def main(argv=None) -> dict:
                "commit": commit,
                "time": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
                "overrides": list(args.set or []),
-               "card": card, "settings": device_mod.settings(),
+               "card": card,
+               "settings": {**device_mod.settings(), "dispatch": dispatch},
                "no_adapt": round(no_adapt, 4),
                "final": agg("final"), "selected": agg("selected"),
                "selected_cr": agg("selected_cr"),

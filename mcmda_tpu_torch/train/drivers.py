@@ -15,14 +15,26 @@ devices on a ``cuda`` run, or an initialised world of another size,
 raises); with ``dp`` 0 or 1 an initialised world of several processes
 (``--multihost``) runs data parallel over all of them.  Each rank feeds its
 own batch of ``data.batch_size`` (the global batch is ``dp`` times that),
-drawn from its own shard of the dataset.  The JAX package's ``pick_inner``
-and ``loop.scanned_step`` fuse dispatches for a TPU and have no
-counterpart.
+drawn from its own shard of the dataset.
+
+A device-resident step advances ``inner`` train steps per call
+(``loop.scanned_step``, with ``inner`` from ``pick_inner``, as in the JAX
+package).  ``dispatch`` decides, before anything is captured, how those
+steps run: on a CUDA device with no group or an NCCL group, one step is
+captured as a CUDA graph and replayed ``inner`` times (the counterpart of
+the JAX package's ``jax.jit`` of its ``lax.scan``); on the CPU, or over a
+gloo group, whose collectives run on the host and cannot be captured, the
+steps run eagerly.  The host-sampler path runs one eager step per call.
 """
 
 from __future__ import annotations
 
+import math
+
+import torch
+
 from mcmda_tpu_torch.parallel import dp as dp_mod, mesh, multihost
+from mcmda_tpu_torch.train import loop
 
 
 def multihost_active() -> bool:
@@ -78,11 +90,58 @@ def _replicating(step, group):
     return wrapped
 
 
-def _step(cfg, make_step, group, **mk_kwargs):
+def pick_inner(*counts, cap: int = 50) -> int:
+    """Largest dispatch-fusion factor <= cap dividing every phase length and
+    the logging grain (so scanned steps land exactly on boundaries)."""
+    g = 0
+    for c in counts:
+        if c:
+            g = math.gcd(g, c)
+    if g <= 0:
+        return 1
+    for d in range(min(cap, g), 0, -1):
+        if g % d == 0:
+            return d
+    return 1
+
+
+def dispatch(device="cuda", group=None) -> str:
+    """How a device-resident step runs its inner steps: ``"graph"`` (a CUDA
+    graph of one step, replayed) on a CUDA device with no group or an NCCL
+    group, else ``"eager"`` (the CPU has no graphs; gloo collectives run on
+    the host and cannot be captured)."""
+    if torch.device(device).type != "cuda":
+        return "eager"
+    if group is not None and \
+            torch.distributed.get_backend(group) != "nccl":
+        return "eager"
+    return "graph"
+
+
+def feed_line(on_device: bool, inner: int, dp: int = 0,
+              device="cuda") -> str:
+    """The ``feed path:`` line the CLI and the API print: the feed, and how
+    many train steps a call runs and how."""
+    group = dp_group(dp, device)
+    feed_name = "device-resident" if on_device else "host-sampler"
+    if not on_device:
+        how = "one eager step per call"
+    elif dispatch(device, group) == "graph":
+        how = f"{inner} steps per call on a CUDA graph"
+    else:
+        how = f"{inner} eager steps per call"
+    sharded = " (per-rank sharded)" if group is not None else ""
+    return f"feed path: {feed_name}{sharded}; {how}"
+
+
+def _step(cfg, make_step, group, wrap=None, **mk_kwargs):
+    step = (make_step(cfg, **mk_kwargs) if group is None
+            else make_step(cfg, group=group, **mk_kwargs))
+    if wrap is not None:
+        step = wrap(step)
     if group is None:
-        return make_step(cfg, **mk_kwargs)
-    return _replicating(dp_mod.data_parallel_step(
-        make_step(cfg, group=group, **mk_kwargs), group), group)
+        return step
+    return _replicating(dp_mod.data_parallel_step(step, group), group)
 
 
 def feed_plumbing(cfg, dp: int = 0, device="cuda"):
@@ -103,17 +162,25 @@ def wrap_dp(cfg, make_step, dp: int = 0, device="cuda", **mk_kwargs):
         cfg.data.batch_size, lambda s: feed(s, device)
 
 
-def device_resident_dp(cfg, make_step, dp: int, data_builder,
+def device_resident_dp(cfg, make_step, dp: int, inner: int, data_builder,
                        device="cuda", **mk_kwargs):
     """(step_fn, data): the device-resident dataset ``data_builder(group)``
     (the group is None on one device; under data parallelism the builder
     holds this rank's shard, see ``shard``) and the step that samples its
-    batch from it on the device.  The JAX package's ``inner`` argument is
-    the dispatch-fusion factor of its ``scanned_step`` and is dropped here:
-    one train step per call."""
+    batch from it on the device, ``inner`` train steps per call
+    (``loop.scanned_step``: a CUDA graph where ``dispatch`` says so, with
+    ``cfg.run.donate``).  Under data parallelism each rank folds its rank
+    into the call's seed before the inner steps fold theirs, and the last
+    step's metrics are averaged over the ranks, as in the JAX package."""
     group = dp_group(dp, device)
     data = data_builder(group)
-    return _step(cfg, make_step, group, sample_from_device=True,
+    graph = dispatch(device, group) == "graph"
+
+    def scan(step):
+        return loop.scanned_step(step, inner, graph=graph,
+                                 donate=cfg.run.donate)
+
+    return _step(cfg, make_step, group, wrap=scan, sample_from_device=True,
                  **mk_kwargs), data
 
 

@@ -34,6 +34,20 @@ def fold_in(seed: int, data: int) -> int:
     return (int(words[0]) << 31) ^ int(words[1])
 
 
-def generator(seed: int, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+def inner_key(seed: int, i: int, inner: int) -> int:
+    """The seed of inner step ``i`` of a call that runs ``inner`` steps
+    (``loop.scanned_step``): ``fold_in(seed, i)``, as the JAX package's
+    ``scanned_step`` folds.  A one-step call keeps the call's seed, where
+    JAX folds in 0 even then: a run at ``inner = 1`` is one step per call,
+    as it was before steps were scanned, and draws what it drew then."""
+    return seed if inner == 1 else fold_in(seed, i)
+
+
+def generator(seed, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``.  A
+    generator passes through as it is: a captured step draws from the
+    generator registered with its CUDA graph, which the host re-seeds
+    before each replay (``utils/cuda_graph.py``)."""
+    if isinstance(seed, torch.Generator):
+        return seed
     return torch.Generator(device=device).manual_seed(seed)

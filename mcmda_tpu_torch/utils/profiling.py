@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from mcmda_tpu_torch.utils import tree
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
@@ -50,17 +52,22 @@ def busy_time(spans) -> float:
     return busy
 
 
-def measure_step(step, state, data, n: int = 3) -> dict:
-    """Run ``n`` steps ``step(state, data, seed)`` on the GPU under
-    ``torch.profiler`` and return
+def measure_step(step, state, data, n: int = 3,
+                 inner_steps: int = 1) -> dict:
+    """Run ``n`` calls ``step(state, data, seed)`` on the GPU under
+    ``torch.profiler``, each ``inner_steps`` train steps (a
+    ``loop.scanned_step``), and return
 
-      steps                  n
-      host_ms_per_step       host clock around the n steps and a final
+      steps                  n * inner_steps
+      host_ms_per_step       host clock around the calls and a final
                              synchronise, per step
       device_busy_ms_per_step  union of the device events' intervals (kernels
                              and copies), per step
       idle_share             1 - device busy time / host clock
       kernels_per_step       device events per step
+      host_launches_per_step the host's launch calls per step (CUDA
+                             runtime and driver calls named ``*Launch*``:
+                             a kernel each, or a whole graph)
       top_kernels            [(name, device ms per step)], the 5 largest
 
     ``data`` is what every step gets; an iterator (a feed) gives each step
@@ -84,6 +91,10 @@ def measure_step(step, state, data, n: int = 3) -> dict:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         raise RuntimeError("measure_step: no device events in the trace")
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CPU
+                   and e.name.startswith("cu") and "Launch" in e.name)
+    n_steps = n * inner_steps
     busy = busy_time((e.time_range.start, e.time_range.end)
                      for e in events) / 1000.0
     by_name: dict = {}
@@ -91,11 +102,12 @@ def measure_step(step, state, data, n: int = 3) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"steps": n, "host_ms_per_step": wall / n,
-            "device_busy_ms_per_step": busy / n,
+    return {"steps": n_steps, "host_ms_per_step": wall / n_steps,
+            "device_busy_ms_per_step": busy / n_steps,
             "idle_share": 1 - busy / wall,
-            "kernels_per_step": len(events) / n,
-            "top_kernels": [(k, t / 1000.0 / n) for k, t in top]}
+            "kernels_per_step": len(events) / n_steps,
+            "host_launches_per_step": launches / n_steps,
+            "top_kernels": [(k, t / 1000.0 / n_steps) for k, t in top]}
 
 
 class StepTimer:
@@ -109,7 +121,8 @@ class StepTimer:
     def tick(self, sync_value=None) -> None:
         """Record a step boundary, after the device of ``sync_value`` (a
         CUDA tensor, or a tree of them) has finished its queued work."""
-        for device in {t.device for t in _tensors(sync_value) if t.is_cuda}:
+        for device in {t.device for t in tree.leaves(sync_value)
+                       if t.is_cuda}:
             torch.cuda.synchronize(device)
         self._t.append(time.perf_counter())
         if len(self._t) > self.window + 1:
@@ -122,14 +135,3 @@ class StepTimer:
         dt = (self._t[-1] - self._t[0]) / (len(self._t) - 1)
         return self.batch / dt / self.ndev
 
-
-def _tensors(node):
-    """The tensors in a tree of dicts, tuples and lists."""
-    if isinstance(node, torch.Tensor):
-        yield node
-    elif isinstance(node, dict):
-        for v in node.values():
-            yield from _tensors(v)
-    elif isinstance(node, (tuple, list)):
-        for v in node:
-            yield from _tensors(v)

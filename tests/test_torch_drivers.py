@@ -77,7 +77,7 @@ def test_device_resident_dp_builds_the_sampling_step(tiny_config):
         return pipeline.to_device_arrays(ds, cfg.data.num_classes, "cpu")
 
     step, data = drivers.device_resident_dp(cfg, source.make_train_step, 0,
-                                            make_data)
+                                            1, make_data, device="cpu")
     assert seen == [None] and set(data) == {"images", "labels"}
     state, m = step(source.init_state(0, cfg, "cpu"), data, 3)
     assert int(state.step) == 1 and np.isfinite(float(m["loss"]))
@@ -88,7 +88,7 @@ _DP_CALLS = {
     "wrap_dp": lambda cfg, dp, dev: drivers.wrap_dp(
         cfg, source.make_train_step, dp, device=dev),
     "device_resident_dp": lambda cfg, dp, dev: drivers.device_resident_dp(
-        cfg, source.make_train_step, dp, lambda _group: {}, device=dev),
+        cfg, source.make_train_step, dp, 1, lambda _group: {}, device=dev),
     "batch_sharding_for": lambda cfg, dp, dev: drivers.batch_sharding_for(
         dp, dev),
 }

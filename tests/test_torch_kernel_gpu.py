@@ -484,3 +484,92 @@ def test_device_helper_pins_tf32_off_and_deterministic_cudnn():
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = saved
+
+
+def _tiny_train_config(**adapt_kw):
+    """The CPU tests' tiny config (32x32 slices, thin stages) with the
+    warp and conv + moments kernels asked for; rm4 and rm5 are 128 wide,
+    so that 3 stride-1 convs per forward take the conv + moments kernel
+    (it needs both widths to be multiples of 128)."""
+    from mcmda_tpu_torch import config as tcfg
+    stages = (StageSpec("stem", 8, 1, 1, 1), StageSpec("rm1", 8, 2, 1, 1),
+              StageSpec("rm2", 16, 2, 1, 1), StageSpec("rm3", 16, 2, 1, 1),
+              StageSpec("rm4", 128, 1, 2, 1), StageSpec("rm5", 128, 1, 2, 1))
+    return tcfg.ExperimentConfig(
+        segmenter=SegmenterConfig(stages=stages, train_fused="pallas"),
+        critic=tcfg.CriticConfig(taps=("rm4", "rm5"), compress_features=8,
+                                 widths=(8, 16), strides=(2, 1)),
+        data=DataConfig(slice_size=32, batch_size=4, shift_pixels=2.0,
+                        warp="pallas"),
+        source=tcfg.SourceTrainConfig(lr=1e-3, steps=20),
+        adapt=tcfg.AdaptConfig(plug_depth="rm2", steps=10, lr_d=1e-3,
+                               lr_g=1e-3, **adapt_kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["t1", "adapt", "adapt-ema"])
+@pytest.mark.parametrize("donate", [True, False])
+def test_graph_steps_equal_eager_steps(cuda_device, case, donate):
+    """Two calls of 4 steps on a CUDA graph (the first: one eager step,
+    the capture, 3 replays) against the eager path with the same seeds:
+    every state tensor and the last metrics ``torch.equal`` (the same
+    kernels in the same order, deterministic cuDNN); the wrappers count
+    the warm-up step and the capture, a quarter of the 8 eager steps'
+    launches each, and no replay; without donation the first call's state
+    survives the second."""
+    from mcmda_tpu_torch.data import synthetic, volumes
+    from mcmda_tpu_torch.train import adapt, loop, source
+    from mcmda_tpu_torch.utils import tree
+
+    saved = torch.backends.cudnn.deterministic
+    device_mod.resolve("cuda", deterministic=True)
+    try:
+        cfg = _tiny_train_config(
+            **({"dam_ema": 0.5, "d_acc_cap": 0.5} if case == "adapt-ema"
+               else {}))
+        mri_v, mri_l = synthetic.make_dataset(0, "mri", 1, 8, 32)
+        ct_v, _ = synthetic.make_dataset(0, "ct", 1, 8, 32)
+        src = volumes.volumes_to_slices(mri_v, mri_l, context=3,
+                                        drop_empty=True)
+        s0 = source.init_state(0, cfg, cuda_device)
+        if case == "t1":
+            make, state0 = source.make_train_step, s0
+            data = pipeline.to_device_arrays(src, 5, cuda_device)
+        else:
+            make = adapt.make_adapt_step
+            state0 = adapt.init_state(2, cfg, s0.params, s0.bn_state)
+            data = {"src": pipeline.to_device_arrays(src, device=cuda_device),
+                    "tgt": pipeline.to_device_arrays(
+                        volumes.volumes_to_slices(ct_v, context=3),
+                        device=cuda_device)}
+
+        def run(graph):
+            step = loop.scanned_step(make(cfg, sample_from_device=True), 4,
+                                     graph=graph, donate=donate)
+            wk.LAUNCHES = tk.LAUNCHES = 0
+            s1, m1 = step(state0, data, 11)
+            first = [t.clone() for t in tree.leaves(s1)]
+            kept = tree.leaves(s1)
+            s2, m2 = step(s1, data, 12)
+            torch.cuda.synchronize()
+            return first, kept, s2, m1, m2, (wk.LAUNCHES, tk.LAUNCHES)
+
+        e_first, _, e2, em1, em2, e_n = run(False)
+        g_first, g_kept, g2, gm1, gm2, g_n = run(True)
+        assert e_n[0] == 8 and e_n[1] > 0
+        assert g_n == tuple(2 * n // 8 for n in e_n)
+        for a, b in zip(g_first, e_first):
+            assert torch.equal(a, b)
+        ga, ea = tree.leaves(g2), tree.leaves(e2)
+        assert len(ga) == len(ea)
+        for a, b in zip(ga, ea):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for gm, em in ((gm1, em1), (gm2, em2)):
+            assert set(gm) == set(em)
+            for k in gm:
+                assert torch.equal(gm[k], em[k]), k
+        if not donate:
+            for a, b in zip(g_kept, g_first):
+                assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -116,7 +116,10 @@ def test_sweep_artifact_has_the_reference_keys(sweep):
         assert [c["step"] for c in curve] == [2, 4, 6]
         assert all(set(c) == set(ref_curve) for c in curve)
     assert all(0.0 <= art["final"][k] <= 1.0 for k in ("mean", "min"))
-    assert set(art["settings"]) == {"tf32", "cudnn_deterministic"}
+    assert set(art["settings"]) == {"tf32", "cudnn_deterministic",
+                                    "dispatch"}
+    assert art["settings"]["dispatch"] == {
+        "graph": False, "inner_source": 3, "inner_adapt": 2, "donate": True}
     assert art["card"] is None  # no card on the CPU
 
 
