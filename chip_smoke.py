@@ -24,10 +24,12 @@ Phases (any failure ends the run non-zero):
    (configs/mri2ct.json, run.use_pallas=true) on a 64-slice 256x256 phantom
    from seeded random weights written in the JAX package's npz layout:
    source-only and adapted with flip TTA in the shipped bf16 serving
-   precision, and source-only in f32.  Checks the masks, that the kernel ran
-   exactly once per fused call site per forward batch, and that the masks
-   match the same run on the kernel's plain version on the card (see
-   RUNS); times both paths.
+   precision, and source-only in f32.  Checks the masks, the kernel's
+   launches (the volume is one CUDA graph: the wrapper runs once per fused
+   call site for the warm-up batch and for each captured batch, the replay
+   runs each batch's, read from a trace), and that the masks match the
+   same run on the kernel's plain version on the card (see RUNS); times
+   both paths.
 5. train kernels: the augmentation warp kernel against its plain version
    (batch 8, 256x256, 3 image + 5 label channels and 3 image channels, and
    adapt's batch 16; both flip states and an identity transform): image
@@ -65,27 +67,28 @@ Phases (any failure ends the run non-zero):
    ``make_adapt_step`` on both paths.
 9. evaluate: ``python -m mcmda_tpu_torch evaluate`` of phase 8's kernel run
    on the fused path (run.use_pallas): it resolves selection.json, the
-   fused conv runs once per call site per forward batch, and the Dice /
-   ASSD table is finite; ``predict`` serves the same selected checkpoint.
+   fused conv's launches are counted as in phase 4, and the Dice / ASSD
+   table is finite; ``predict`` serves the same selected checkpoint.
 10. api: ``api.train_source -> api.adapt -> api.evaluate -> api.predict``
    at full width (see API_SETS) on the device-resident feed (step
    counters, finite losses, selection.json and the materialized pick, a
    finite table, uint8 masks, launches per step and per forward batch);
    the same seeds through the CLI (every checkpoint bitwise equal); the
-   host-sampler feed (``api._ON_DEVICE_BYTES = 0``) through
-   ``prefetch_to_device`` and through a synchronous feed of the same
-   sampler stream (losses and final states bitwise equal); an
-   ``out_dir=None`` run that writes nothing; ms/step and
-   ``profiling.measure_step`` of the host-sampler steps with both feeds.
+   host-sampler feed (``api._ON_DEVICE_BYTES = 0``, a CUDA graph of one
+   step per batch) through ``prefetch_to_device`` and through a
+   synchronous feed of the same sampler stream (losses and final states
+   bitwise equal); an ``out_dir=None`` run that writes nothing; ms/step
+   and ``profiling.measure_step`` of the host-sampler steps with both
+   feeds.
 11. quality: the seed-sweep twin (``mcmda_tpu_torch/scripts/seed_sweep.py``)
    at full width on 2 volumes of 16 slices, 20 source and 2 x 40 adapt
    steps, a probe every 10 (artifact keys against the reference's
    ``results/mri2ct_seed_sweep_r5.json``, a ``--first-seed 1 --merge``
    rerun bitwise equal); the synthetic-benchmark twin for mri2ct at 10 + 10
-   steps with ``run.use_pallas`` on ``evaluate``; the e2e example twin on
-   the card (its plain paths: no kernel launch).  Launches held to 1 warp +
-   15 conv + moments per training step and 19 fused convs per forward
-   batch.
+   steps with ``run.use_pallas`` on ``evaluate`` (traced); the e2e example
+   twin on the card (its plain paths: no kernel launch).  Launches held to
+   1 warp + 15 conv + moments per training step and 19 fused convs per
+   forward batch, as the graphs launch them.
 12. dp: data parallelism on the one card.  (a) two spawned ranks on
    cuda:0 over gloo (NCCL refuses two ranks on one GPU), 8 slices each:
    one T1 step and one adapt step per ``d_acc_cap`` (1.0, 0.5) at full
@@ -131,7 +134,7 @@ Phases (any failure ends the run non-zero):
    ``torch.equal``, the graph's replays counted on the device; each
    capture under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
-   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of 5
+   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of 3
    calls of 50 steps after a warm-up call), ``measure_step`` (device busy
    time, idle share, host launch calls per step), capture time and graph
    pool; (d) ``adapt`` through the CLI on the graph (log and probe steps,
@@ -139,18 +142,39 @@ Phases (any failure ends the run non-zero):
    (sent to this process once its step-50 checkpoint exists) and resumed,
    bitwise the uninterrupted run; (f) a one-rank NCCL group's step
    captured against its eager path.
+15. graphs: the last eager dispatch on CUDA graphs, at full width
+   (configs/mri2ct.json, kernel path), each against its eager twin
+   (``eager_dispatch``) and timed both ways (host clock, median after a
+   warm-up, in turns; ``measure_step``: device busy, idle share, host
+   launch calls).  (a) the host-sampler feed (``api._ON_DEVICE_BYTES =
+   0``) through the API, T1 then adapt at rm3 (critic pretrain and main
+   step), HOST_STEPS each: every state tensor ``torch.equal``, every
+   step's metrics and ``selection.json`` equal, the ``feed path:`` lines;
+   ms/step of each step, capture and pool; (b) serving: ``predict_volume``
+   as one graph against its batch loop, masks ``np.array_equal``, for
+   phase 4's three cases (bf16, flip TTA at batch 16, f32): ms per
+   64-slice volume, the CLI ``predict`` wall both ways, capture and pool
+   growth; (c) one selection tick (``make_select_bundle``) on the graph
+   against eager: fractions and entropy ``torch.equal``, ms per tick; (d)
+   the seed sweep at toy length with ``adapt.dam_ema=0.5`` (the live,
+   flip-TTA and in-state EMA probes): curves and rows equal; (e) a
+   one-rank NCCL group's host-sampler graph, NCCL_STEPS steps, bitwise one
+   process; (f) a capture that syncs with the host and a fed batch of
+   another shape raise.
 
 Launch counts: each kernel's wrapper counts its launches on the host, a
 launch that runs at once and one that a CUDA graph capture records alike;
 a graph's replays run the recorded kernels with no wrapper call.  A
-device-resident training run's wrappers so launch 2 steps' kernels per
-graph (``on_graph``: the first call's eager step and the capture), which
-phases 6-13 hold.  Phase 14 traces its CLI runs and its graphs' calls with
-``torch.profiler`` (``traced_launches``) and holds what their replays ran
-(the kernels whose launch, by CUPTI correlation id, is a graph launch) to
-the other steps' launches, as far as a trace, which may lack records,
-can show them; the kernels line counts the wrappers' launches everywhere
-plus the replays the traces show.
+training run's wrappers so launch 2 steps' kernels per graph
+(``on_graph``: the first call's eager step and the capture), which phases
+6-13 hold; a serving run's fused conv launches, per volume graph, its
+warm-up batch and its captured batches (``served``).  Phase 14 traces its
+CLI runs and its graphs' calls, and phases 4, 9, 10, 11 and 13 their
+serving runs, with ``torch.profiler`` (``traced_launches``), and hold what
+the replays ran (the kernels whose launch, by CUPTI correlation id, is a
+graph launch) to the launches the graph recorded, as far as a trace,
+which may lack records, can show them; the kernels line counts the
+wrappers' launches everywhere plus the replays the traces show.
 
 Every kernel is timed beside its bound and a PyTorch call computing the
 same or the core of the same function (``library_ms``; for the convs
@@ -172,6 +196,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -726,19 +751,14 @@ def phase_predict(cfg, torch, fk, n_sites):
                     "--input", vol_path, "--device", DEVICE, *extra]
             outs = {v: os.path.join(tmp, f"out_{name}_{v}".replace(" ", "_"))
                     for v in ("kernel", "plain", "exact")}
-            torch.cuda.synchronize()
-            fk.LAUNCHES = 0
-            t0 = time.perf_counter()
-            rc = cli.main(argv + ["--out", outs["kernel"]])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n = fk.LAUNCHES
-            launches += n
+            total = [0]
+            rc = traced_run(torch, (fk,), total, f"predict {name}",
+                            lambda: cli.main(argv + ["--out",
+                                                     outs["kernel"]]),
+                            *((n,) for n in served(n_sites, batches)))
+            launches += total[0]
             if rc != 0:
                 fail(f"predict {name} returned {rc}")
-            if n != n_sites * batches:
-                fail(f"predict {name}: {n} kernel launches, expected "
-                     f"{n_sites} x {batches} batches")
             args = cli.build_parser().parse_args(argv + ["--out",
                                                          outs["plain"]])
             cli.cmd_predict(args, use_kernel=False)
@@ -764,11 +784,10 @@ def phase_predict(cfg, torch, fk, n_sites):
             t_k, t_p, probs_err, ties = time_forward(cfg, torch, cli, args,
                                                      vol_path, volumes)
             print(f"predict {name}: mask {list(mask.shape)} classes "
-                  f"{counts.tolist()}; kernel launches {n} = {n_sites} x "
-                  f"{batches} batches; voxel agreement kernel/plain {kp:.6f}"
+                  f"{counts.tolist()}; voxel agreement kernel/plain {kp:.6f}"
                   f" ({int(round((1 - kp) * mask.size))} differ), "
-                  f"kernel/exact {ke:.6f}, plain/exact {pe:.6f}; cli wall "
-                  f"{wall:.2f} s; predict_volume kernel {t_k:.1f} ms/volume "
+                  f"kernel/exact {ke:.6f}, plain/exact {pe:.6f}; "
+                  f"predict_volume kernel {t_k:.1f} ms/volume "
                   f"({1000 / t_k:.2f} volumes/s), plain {t_p:.1f} ms/volume;"
                   f" batch-0 probs max abs diff {probs_err:.3e}, top-2 gap "
                   f"< 1/128 in {100 * ties:.3f}% of voxels", flush=True)
@@ -1494,24 +1513,18 @@ def phase_evaluate(torch, fk, tmp, run_dir, n_sites):
     args = cli.build_parser().parse_args(
         ["evaluate", "--config", CONFIG, "--synthetic", "--ckpt", run_dir,
          "--device", DEVICE, *sets])
-    fk.LAUNCHES = 0
-    t0 = time.perf_counter()
-    agg = cli.cmd_evaluate(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n_eval = fk.LAUNCHES
     # --synthetic-volumes 4 holds out one 64-slice target volume
     batches = -(-max(16, SIZE // 4) // BATCH)
+    total = [0]
+    agg = traced_run(torch, (fk,), total, "evaluate",
+                     lambda: cli.cmd_evaluate(args),
+                     *((n,) for n in served(n_sites, batches)))
     mean = agg["mean"]
-    print(f"evaluate {os.path.basename(args.ckpt)}: cli wall {wall:.1f} s; "
-          f"fused conv launches {n_eval} = {n_sites} x {batches} batches; "
+    print(f"evaluate {os.path.basename(args.ckpt)}: "
           f"mean Dice {mean['dice']:.4f} ASSD {mean['assd']:.3f} HD95 "
           f"{mean['hd95']:.3f} misses {mean['assd_misses']}", flush=True)
     if args.ckpt != selected:
         fail(f"evaluate resolved {args.ckpt}, not the selected {selected}")
-    if n_eval != n_sites * batches:
-        fail(f"evaluate: {n_eval} fused conv launches, expected "
-             f"{n_sites} x {batches}")
     if not all(math.isfinite(mean[k]) for k in ("dice", "assd", "hd95")):
         fail(f"evaluate: table not finite {mean}")
     vol, _ = synthetic.make_volume(np.random.default_rng(SEED + 1), "ct",
@@ -1520,24 +1533,22 @@ def phase_evaluate(torch, fk, tmp, run_dir, n_sites):
     os.makedirs(os.path.dirname(vol_path))
     volumes.save_volume(vol_path, vol)
     pred_dir = os.path.join(tmp, "pred-adapt")
-    fk.LAUNCHES = 0
     if cli._resolve_ckpt(run_dir) != selected:
         fail("predict would not serve the selected checkpoint")
-    rc = cli.main(["predict", "--config", CONFIG, "--ckpt", run_dir,
-                   "--input", vol_path, "--out", pred_dir, "--device",
-                   DEVICE, *sets])
-    n_pred = fk.LAUNCHES
+    rc = traced_run(torch, (fk,), total,
+                    f"predict {os.path.basename(selected)}",
+                    lambda: cli.main(["predict", "--config", CONFIG, "--ckpt",
+                                      run_dir, "--input", vol_path, "--out",
+                                      pred_dir, "--device", DEVICE, *sets]),
+                    *((n,) for n in served(n_sites, -(-16 // BATCH))))
     mask = volumes.load_volume_with_spacing(
         os.path.join(pred_dir, "case2_pred.npz"))[0]
     counts = np.bincount(mask.astype(np.int64).ravel(), minlength=5)
     print(f"predict {os.path.basename(selected)}: mask {list(mask.shape)} "
-          f"classes {counts.tolist()}, fused conv launches {n_pred}",
-          flush=True)
-    if rc != 0 or mask.shape != (16, SIZE, SIZE) or \
-            n_pred != -(-16 // BATCH) * n_sites:
-        fail(f"predict of the adapted run: rc {rc}, mask {mask.shape}, "
-             f"launches {n_pred}")
-    return n_eval + n_pred
+          f"classes {counts.tolist()}", flush=True)
+    if rc != 0 or mask.shape != (16, SIZE, SIZE):
+        fail(f"predict of the adapted run: rc {rc}, mask {mask.shape}")
+    return total[0]
 
 
 # phase 10: the --set overrides of the API path (beside the shipped config)
@@ -1587,6 +1598,7 @@ def _states_equal(a, b, weights, torch):
 DEVICE_KERNELS = {
     "warp": re.compile(r"\bwarp_(?:vec|staged|generic)_kernel\b"),
     "train_conv": re.compile(r"\bconv_stats_kernel\b"),
+    "fused_conv": re.compile(r"\bconv_bn_act_kernel\b"),
 }
 
 
@@ -1646,12 +1658,48 @@ def check_replays(label, host, replayed, per_step, steps, graphs=1):
     are not held to the full count.  Returns what the run adds to the
     kernels line: the launches and the replays the trace shows."""
     most = [(steps - graphs) * p for p in per_step]
-    if tuple(host) != on_graph(per_step, graphs) or any(
+    _hold(label, host, replayed, on_graph(per_step, graphs), most)
+    return [h + r for h, r in zip(host, replayed)]
+
+
+def _hold(label, host, replayed, want, most):
+    """Fail unless a traced run's wrappers launched ``want`` and its
+    replays ran each kernel at most ``most`` times, and at least once
+    where ``most`` is above 0."""
+    if tuple(host) != tuple(want) or any(
             r > m or (m > 0) != (r > 0) for r, m in zip(replayed, most)):
         fail(f"{label}: wrapper launches {tuple(host)}, replayed "
-             f"{tuple(replayed)}; expected {on_graph(per_step, graphs)} and "
-             f"up to {tuple(most)}, each kernel at least once")
-    return [h + r for h, r in zip(host, replayed)]
+             f"{tuple(replayed)}; expected {tuple(want)} and up to "
+             f"{tuple(most)}, each kernel that replays at least once")
+
+
+def served(n_sites, *batches):
+    """(wrapper launches, most replayed) of the fused conv in a serving run
+    (evaluate / predict) that captures one CUDA graph per volume of
+    ``batches`` forward batches each (every command builds its own
+    forward, so each of its volumes is a new graph here): the warm-up
+    batch and the capture launch ``n_sites`` per batch through the
+    wrapper, and the graph's replay runs ``n_sites`` per batch with no
+    wrapper call."""
+    return (n_sites * sum(b + 1 for b in batches),
+            n_sites * sum(batches))
+
+
+def traced_run(torch, kernels, total, label, fn, want, most):
+    """Run ``fn`` under ``traced_launches`` with the counts of ``kernels``
+    at 0; print them, hold the wrappers' launches to ``want`` and the
+    replays to ``most`` (``_hold``: a trace may lack records, see
+    ``check_replays``) and add launches and replays to ``total``.  Returns
+    what ``fn`` returns."""
+    out, wall, host, ran, replayed = traced_launches(torch, kernels, fn)
+    print(f"{label}: wall {wall:.1f} s (traced); "
+          + _launch_text(kernels, host, ran, replayed)
+          + f"; expected {tuple(want)} launched, up to {tuple(most)} "
+          "replayed", flush=True)
+    _hold(label, host, replayed, want, most)
+    for i, (h, r) in enumerate(zip(host, replayed)):
+        total[i] += h + r
+    return out
 
 
 # the kernels line's names of the counted modules
@@ -1760,11 +1808,13 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
     ad = counted("adapt", lambda: api.adapt(
         cfg, src, sv, sl, tgt_train, out_dir=d("ad")), ad_graph)
     api_run = check_runs("device-resident", d("src"), d("ad"), src, ad)
-    batches = -(-depth // BATCH)
-    table = counted("evaluate", lambda: api.evaluate(
-        cfg, ad, test_v, test_l), (0, 0, n_sites * batches))
-    masks = counted("predict", lambda: api.predict(
-        cfg, ad, test_v), (0, 0, n_sites * batches))
+    fused, replays = served(n_sites, -(-depth // BATCH))
+    table = traced_run(torch, (wk, tk, fk), total, "api evaluate",
+                       lambda: api.evaluate(cfg, ad, test_v, test_l),
+                       (0, 0, fused), (0, 0, replays))
+    masks = traced_run(torch, (wk, tk, fk), total, "api predict",
+                       lambda: api.predict(cfg, ad, test_v),
+                       (0, 0, fused), (0, 0, replays))
     mean = table["mean"]
     print(f"api evaluate: mean Dice {mean['dice']:.4f} ASSD "
           f"{mean['assd']:.3f} HD95 {mean['hd95']:.3f} misses "
@@ -1803,9 +1853,9 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
               "equal", flush=True)
 
     # 3. host-sampler: the prefetching feed against a synchronous one, one
-    # eager step per batch
-    t1_want = (n_src, 15 * n_src, 0)
-    ad_want = (n_pre + n_ad, 15 * (n_pre + n_ad), 0)
+    # step per batch on a CUDA graph (T1; the critic pretrain and the
+    # adaptation)
+    t1_want, ad_want = t1_graph, ad_graph
     real_cutoff, real_feed = api._ON_DEVICE_BYTES, pipeline.prefetch_to_device
     fed = []
 
@@ -2013,16 +2063,20 @@ def phase_quality(torch, wk, tk, fk, tmp, n_sites):
         fail("the --merge rerun did not reproduce the sweep bitwise")
 
     # synthetic benchmark, one direction: train-source, evaluate
-    # --source-only, adapt, evaluate; each evaluate runs the fused conv at
-    # every call site of the held-out 64-slice volume's 8 forward batches
+    # --source-only, adapt, evaluate (traced); each evaluate captures the
+    # held-out 64-slice volume's 8 forward batches as a CUDA graph, and
+    # the two training runs take a graph each (BENCH_STEPS steps, no
+    # critic pretrain in configs/mri2ct.json)
     res = os.path.join(tmp, "bench-results")
     batches = -(-max(16, SIZE // 4) // BATCH)
-    counted_run(torch, kernels, total, "quality synthetic benchmark mri2ct",
-                lambda: synthetic_benchmark.main(
-                    ["--direction", "mri2ct", "--runs",
-                     os.path.join(tmp, "bench-runs"), "--results-dir", res,
-                     *(a for kv in BENCH_SETS for a in ("--set", kv))]),
-                (*on_graph((1, 15), 2), 2 * n_sites * batches))
+    fused, replays = served(n_sites, batches, batches)
+    traced_run(torch, kernels, total, "quality synthetic benchmark mri2ct",
+               lambda: synthetic_benchmark.main(
+                   ["--direction", "mri2ct", "--runs",
+                    os.path.join(tmp, "bench-runs"), "--results-dir", res,
+                    *(a for kv in BENCH_SETS for a in ("--set", kv))]),
+               (*on_graph((1, 15), 2), fused),
+               ((2 * BENCH_STEPS - 2), 15 * (2 * BENCH_STEPS - 2), replays))
     tables = sorted(os.listdir(res))
     if tables != [f"torch_synthetic_mri2ct_{k}.json"
                   for k in ("adapted", "no_adapt")]:
@@ -2781,10 +2835,10 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
     use_pallas = sets(*SETS)
     args = cli.build_parser().parse_args(
         ["evaluate", *common, "--ckpt", kernel_dir, *use_pallas])
-    batches = -(-max(16, SIZE // 4) // BATCH)
-    agg = counted_run(torch, kernels, total, "ct2mri evaluate (flip TTA)",
-                      lambda: cli.cmd_evaluate(args),
-                      (0, 0, n_sites * batches))
+    fused, replays = served(n_sites, -(-max(16, SIZE // 4) // BATCH))
+    agg = traced_run(torch, kernels, total, "ct2mri evaluate (flip TTA)",
+                     lambda: cli.cmd_evaluate(args), (0, 0, fused),
+                     (0, 0, replays))
     mean = agg["mean"]
     print(f"ct2mri evaluate {os.path.basename(args.ckpt)}: mean Dice "
           f"{mean['dice']:.4f} ASSD {mean['assd']:.3f} HD95 "
@@ -2802,9 +2856,10 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
             vol_path, "--device", DEVICE, *use_pallas]
     outs = {v: os.path.join(tmp, f"pred-ct2mri-{v}")
             for v in ("kernel", "plain", "exact")}
-    rc = counted_run(torch, kernels, total, "ct2mri predict (flip TTA)",
-                     lambda: cli.main(argv + ["--out", outs["kernel"]]),
-                     (0, 0, n_sites * (SLICES // BATCH)))
+    fused, replays = served(n_sites, SLICES // BATCH)
+    rc = traced_run(torch, kernels, total, "ct2mri predict (flip TTA)",
+                    lambda: cli.main(argv + ["--out", outs["kernel"]]),
+                    (0, 0, fused), (0, 0, replays))
     cli.cmd_predict(cli.build_parser().parse_args(
         argv + ["--out", outs["plain"]]), use_kernel=False)
     predict_exact(cli, fk, argv + ["--out", outs["exact"]])
@@ -2860,7 +2915,7 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
 # measure_step reads calls of SCAN_PROFILE steps of each path (a 50-step
 # eager call under the profiler would hold some 175,000 kernel events).
 SCAN_INNER = 50
-SCAN_TIMED = 5
+SCAN_TIMED = 3
 SCAN_PROFILE = 5
 SCAN_NCCL = 10
 # (d) the CLI on the graph: 100 T1 steps, then 50 critic pretrain + 100
@@ -3230,6 +3285,401 @@ def phase_scan(torch, wk, tk, tmp):
     return launches
 
 
+# phase 15: the last eager dispatch on CUDA graphs.  (a) runs HOST_STEPS
+# steps of each host-sampler path (T1; adapt's critic pretrain and main
+# step at rm3) through the API with the 1 GiB cutoff set to 0, on the graph
+# and eagerly (``eager_dispatch``), then times each step on both: windows
+# of HOST_TIMED steps (host clock around next(feed) + step, synchronised at
+# the window's ends) in the order eager, graph, graph, eager after a
+# warm-up window each.  (b) serves SERVE_TIMED volumes per path, (c) runs
+# PROBE_TIMED ticks per path, in turns after a warm-up; (d) runs the sweep
+# for GRAPH_SWEEP_ADAPT steps; (e) NCCL_STEPS steps.
+HOST_STEPS = 20
+HOST_TIMED = 5
+GRAPH_SWEEP_ADAPT = 20
+HOST_SETS = ["segmenter.train_fused=pallas", "run.log_every=1",
+             f"source.steps={HOST_STEPS}", f"adapt.pretrain_steps={HOST_STEPS}",
+             f"adapt.steps={HOST_STEPS}"]
+SERVE_TIMED = 5
+PROBE_TIMED = 5
+NCCL_STEPS = 10
+
+
+@contextlib.contextmanager
+def eager_dispatch():
+    """Inside the block ``drivers.dispatch`` says "eager", so every path
+    that takes a CUDA graph on the card runs its eager twin instead: what
+    the graph is held to here.  The port itself never falls back."""
+    from mcmda_tpu_torch.train import drivers
+
+    real = drivers.dispatch
+    drivers.dispatch = lambda *a, **k: "eager"
+    try:
+        yield
+    finally:
+        drivers.dispatch = real
+
+
+def _turns(torch, paths, run, warm, timed):
+    """ms of ``run(path)`` (host clock, synchronised) per path: ``warm``
+    calls of each, then ``timed`` rounds of the paths in turns, the order
+    reversed every round.  Returns {path: [ms, ...]}."""
+    for p in paths:
+        for _ in range(warm):
+            run(p)
+    times = {p: [] for p in paths}
+    for i in range(timed):
+        for p in (paths if i % 2 == 0 else paths[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(p)
+            torch.cuda.synchronize()
+            times[p].append((time.perf_counter() - t0) * 1000)
+    return times
+
+
+def _profile_text(m: dict) -> str:
+    return (f"busy {m['device_busy_ms_per_step']:.2f} ms, idle "
+            f"{100 * m['idle_share']:.1f}%, host launch calls "
+            f"{m['host_launches_per_step']:.1f}")
+
+
+def phase_graphs(torch, wk, tk, fk, cfg_eval, tmp, card):
+    """Phase 15: the host-sampler steps, serving's one-dispatch volume,
+    the class-ratio probe and the sweep's probes on CUDA graphs, each
+    against its eager twin (bitwise) and timed both ways, and the
+    host-sampler graph in a one-rank NCCL group.  See the module
+    docstring.  Returns [warp, conv + moments, fused conv]: the wrappers'
+    launches of the phase (eager runs, warm-ups and captures; the replays
+    are not counted)."""
+    import io
+    import torch.distributed as dist
+    from mcmda_tpu_torch import api, cli
+    from mcmda_tpu_torch import config as config_mod
+    from mcmda_tpu_torch.data import pipeline, synthetic, volumes
+    from mcmda_tpu_torch.evaluation import inference
+    from mcmda_tpu_torch.scripts import seed_sweep
+    from mcmda_tpu_torch.train import adapt, drivers, source
+    from mcmda_tpu_torch.utils import cuda_graph, device as device_mod, \
+        prng, profiling
+
+    t_phase = time.perf_counter()
+    device_mod.resolve(DEVICE, deterministic=True)
+    torch.cuda.empty_cache()
+    wk.LAUNCHES = tk.LAUNCHES = fk.LAUNCHES = 0
+    marks = []
+    graph_line = "feed path: host-sampler; one step per call on a CUDA graph"
+    eager_line = "feed path: host-sampler; one eager step per call"
+
+    # (a) the host-sampler steps through the API, on the graph and eager
+    cfg = config_mod.load_config(CONFIG, HOST_SETS)
+    depth = max(16, SIZE // 4)
+    sv, sl = synthetic.make_dataset(0, "mri", 4, depth, SIZE)
+    tv, _ = synthetic.make_dataset(0, "ct", 4, depth, SIZE)
+    runs = {}
+    real_cutoff = api._ON_DEVICE_BYTES
+    api._ON_DEVICE_BYTES = 0
+    try:
+        for mode in ("graph", "eager"):
+            out = os.path.join(tmp, f"graphs-{mode}")
+            log = io.StringIO()
+            ctx = eager_dispatch() if mode == "eager" else \
+                contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with ctx, contextlib.redirect_stdout(log):
+                src = api.train_source(cfg, sv, sl, out_dir=out + "-src",
+                                       device=DEVICE)
+                ad = api.adapt(cfg, src, sv, sl, tv[:-1], out_dir=out + "-ad")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            files = {}  # every record but its wall time
+            for run in ("src", "ad"):
+                for name in ("metrics.jsonl", "selection.json"):
+                    path = os.path.join(f"{out}-{run}", name)
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            files[f"{run}/{name}"] = [
+                                {k: v for k, v in json.loads(ln).items()
+                                 if k != "wall"} for ln in f if ln.strip()]
+            lines = log.getvalue().splitlines()
+            runs[mode] = (src, ad, files, [ln for ln in lines
+                                           if ln.startswith("feed path:")])
+            print(f"graphs (a) api host-sampler {mode}: T1 {HOST_STEPS} + "
+                  f"pretrain {HOST_STEPS} + adapt {HOST_STEPS} steps (probe "
+                  f"every {api._select_every(cfg, HOST_STEPS)}) in {wall:.1f}"
+                  f" s; {runs[mode][3]}; "
+                  + "; ".join(ln for ln in lines if ln.startswith("[graph]")),
+                  flush=True)
+    finally:
+        api._ON_DEVICE_BYTES = real_cutoff
+    (g_src, g_ad, g_files, g_feed), (e_src, e_ad, e_files, e_feed) = \
+        runs["graph"], runs["eager"]
+    same_src, n_src, bad_src = _tensors_equal(torch, g_src, e_src)
+    same_ad, n_ad, bad_ad = _tensors_equal(torch, g_ad, e_ad)
+    same_files = g_files == e_files and len(g_files) == 3
+    print(f"graphs (a) api host-sampler graph vs eager: T1 {n_src} state "
+          f"tensors {'bitwise equal' if same_src else f'DIFFER {bad_src}'}; "
+          f"adapt {n_ad} {'bitwise equal' if same_ad else f'DIFFER {bad_ad}'}"
+          f"; metrics.jsonl (every step's metrics) and selection.json "
+          f"{'equal' if same_files else 'DIFFER'} ({sorted(g_files)})",
+          flush=True)
+    if not (same_src and same_ad and same_files):
+        fail("graphs (a): the host-sampler graph and eager runs differ")
+    if g_feed != [graph_line] * 2 or e_feed != [eager_line] * 2:
+        fail(f"graphs (a): feed lines {g_feed} / {e_feed}")
+
+    src_ds = volumes.volumes_to_slices(sv, sl, context=3, drop_empty=True)
+    tgt_ds = volumes.volumes_to_slices(tv[:-1], context=3)
+
+    def t1_stream():
+        return iter(pipeline.BatchSampler(src_ds, BATCH, seed=1,
+                                          num_classes=cfg.data.num_classes))
+
+    def adapt_stream():
+        return ({"src_image": a["image"], "tgt_image": b["image"]}
+                for a, b in zip(pipeline.BatchSampler(src_ds, BATCH, seed=3),
+                                pipeline.BatchSampler(tgt_ds, BATCH, seed=4)))
+
+    a0 = adapt.init_state(cfg.run.seed + 2, cfg, g_src.params,
+                          g_src.bn_state)
+    rows = []
+    for label, make, kw, state0, stream in (
+            ("T1", source.make_train_step, {}, g_src, t1_stream),
+            ("adapt pretrain", adapt.make_adapt_step, {"train_g": False}, a0,
+             adapt_stream),
+            ("adapt rm3", adapt.make_adapt_step, {}, a0, adapt_stream)):
+        steps = {"graph": drivers.wrap_dp(cfg, make, device=DEVICE, **kw)[0]}
+        with eager_dispatch():
+            steps["eager"] = drivers.wrap_dp(cfg, make, device=DEVICE,
+                                             **kw)[0]
+        feeds = {m: drivers.feed(stream(), DEVICE) for m in steps}
+        states = dict.fromkeys(steps, state0)
+
+        def window(m):
+            for i in range(HOST_TIMED):
+                states[m], _ = steps[m](states[m], next(feeds[m]), i)
+
+        times = _turns(torch, ("eager", "graph"), window, 1, 2)
+        prof = {m: profiling.measure_step(steps[m], states[m], feeds[m], n=5)
+                for m in steps}
+        st = steps["graph"].stats
+        med = {m: statistics.median(t) / HOST_TIMED for m, t in times.items()}
+        rows.append(f"{label} eager {med['eager']:.2f} / graph "
+                    f"{med['graph']:.2f} ms/step")
+        print(f"graphs (a) host-sampler {label} step, prefetched feed, on "
+              f"{card}: ms/step eager "
+              f"{[round(t / HOST_TIMED, 2) for t in times['eager']]}, graph "
+              f"{[round(t / HOST_TIMED, 2) for t in times['graph']]} (windows"
+              f" of {HOST_TIMED} steps in turns); measure_step eager "
+              f"{prof['eager']['host_ms_per_step']:.2f} ms/step, "
+              f"{_profile_text(prof['eager'])}; graph "
+              f"{prof['graph']['host_ms_per_step']:.2f} ms/step, "
+              f"{_profile_text(prof['graph'])}; capture "
+              f"{st['capture_s']:.2f} s, graph pool "
+              f"{st['pool_bytes'] / 2**20:.0f} MiB", flush=True)
+        del steps, feeds, states
+    del a0, runs, g_src, e_src, e_ad
+    torch.cuda.empty_cache()
+    marks.append(("(a) host-sampler", time.perf_counter() - t_phase))
+
+    # (b) serving: predict_volume's one graph against its batch loop
+    src, ada, vol_path = write_inputs(cfg_eval,
+                                      os.path.join(tmp, "graphs-serve"), torch)
+    vol = volumes.normalize_volume(
+        volumes.load_volume_with_spacing(vol_path)[0])
+    device = torch.device(DEVICE)
+    sets = [a for kv in SETS for a in ("--set", kv)]
+    for name, extra, _ in RUNS:
+        ckpt = src if "--source-only" in extra else ada
+        argv = ["predict", "--config", CONFIG, *sets, "--ckpt",
+                os.path.dirname(ckpt), "--input", vol_path, "--device",
+                DEVICE, *extra]
+        args = cli.build_parser().parse_args(argv + ["--out", tmp])
+        args.ckpt = cli._resolve_ckpt(args.ckpt)
+        ecfg = config_mod.load_config(args.config, args.set)
+        tta = inference.get_tta(args.tta or ecfg.run.eval_tta) or \
+            (lambda f: f)
+        fwd = tta(cli._restore_eval_forward(ecfg, args, device, True))
+        masks = {}
+
+        def serve(sd):
+            masks[sd] = inference.predict_volume(
+                fwd, vol, context=3, batch_size=BATCH, device=device,
+                single_dispatch=sd)
+
+        times = _turns(torch, (False, True), serve, 1, SERVE_TIMED)
+        runner = inference._scanned_argmax(
+            fwd, (tuple(vol.shape), device, True), 3, BATCH)
+        prof = {sd: profiling.measure_step(
+            lambda st, v, _s, sd=sd: (st, serve(sd)), None, vol, n=3)
+            for sd in (False, True)}
+        walls, cli_masks = {}, {}
+        for mode in ("graph", "eager"):
+            out = os.path.join(tmp, f"serve-{name}-{mode}".replace(" ", "_"))
+            ctx = eager_dispatch() if mode == "eager" else \
+                contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx, contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv + ["--out", out])
+            walls[mode] = time.perf_counter() - t0
+            cli_masks[mode] = volumes.load_volume_with_spacing(
+                os.path.join(out, "case1_pred.nii.gz"))[0]
+            if rc != 0:
+                fail(f"graphs (b) predict {name} {mode}: rc {rc}")
+        same = np.array_equal(masks[True], masks[False])
+        same_cli = np.array_equal(cli_masks["graph"], cli_masks["eager"])
+        print(f"graphs (b) serving {name}: {SLICES}-slice volume masks, one "
+              f"graph vs the batch loop {'equal' if same else 'DIFFER'}, the"
+              f" CLI graph vs eager {'equal' if same_cli else 'DIFFER'}; on "
+              f"{card}: ms/volume batch loop "
+              f"{[round(t, 2) for t in times[False]]} (median "
+              f"{statistics.median(times[False]):.2f}), graph "
+              f"{[round(t, 2) for t in times[True]]} (median "
+              f"{statistics.median(times[True]):.2f}); measure_step loop "
+              f"{_profile_text(prof[False])}, graph "
+              f"{_profile_text(prof[True])} (per volume); CLI predict wall "
+              f"graph {walls['graph']:.2f} s, eager {walls['eager']:.2f} s; "
+              f"capture {runner.stats['capture_s']:.2f} s, pool growth "
+              f"{runner.stats['pool_bytes'] / 2**20:.0f} MiB", flush=True)
+        if not (same and same_cli) or masks[True].shape != vol.shape:
+            fail(f"graphs (b) serving {name}: masks differ")
+        rows.append(f"serving {name} loop "
+                    f"{statistics.median(times[False]):.2f} / graph "
+                    f"{statistics.median(times[True]):.2f} ms/volume")
+        del fwd, runner
+    inference._scan_cache.clear()
+    inference._tta_cache.clear()
+    marks.append(("(b) serving", time.perf_counter() - t_phase))
+
+    # (c) one selection tick (make_select_bundle: the probe and the weight
+    # copies) on the graph against eager, on (a)'s adapted state
+    probe_images = api._probe_images(tgt_ds)
+    bundles = {"graph": adapt.make_select_bundle(cfg, probe_images)}
+    ticks = {}
+    with eager_dispatch():  # the probe picks its dispatch at its first call
+        bundles["eager"] = adapt.make_select_bundle(cfg, probe_images)
+        ticks["eager"] = bundles["eager"](g_ad)
+
+    def tick(m):
+        ticks[m] = bundles[m](g_ad)
+
+    times = _turns(torch, ("eager", "graph"), tick, 1, PROBE_TIMED)
+    prof = {m: profiling.measure_step(
+        lambda st, _d, _s, m=m: (st, bundles[m](st)), g_ad, None, n=3)
+        for m in bundles}
+    same = all(torch.equal(ticks["graph"][k], ticks["eager"][k])
+               for k in ("fracs_live", "ent_live"))
+    print(f"graphs (c) selection tick ({len(probe_images)} target slices, "
+          f"batch {cfg.data.batch_size}): graph vs eager fractions "
+          f"{ticks['graph']['fracs_live'].tolist()} and entropy "
+          f"{float(ticks['graph']['ent_live'])!r} "
+          f"{'bitwise equal' if same else 'DIFFER'}; on {card}: ms/tick "
+          f"eager {[round(t, 2) for t in times['eager']]}, graph "
+          f"{[round(t, 2) for t in times['graph']]}; measure_step eager "
+          f"{_profile_text(prof['eager'])}, graph "
+          f"{_profile_text(prof['graph'])} (per tick)", flush=True)
+    if not same:
+        fail(f"graphs (c): probe graph {ticks['graph']} vs eager "
+             f"{ticks['eager']}")
+    rows.append(f"probe tick eager {statistics.median(times['eager']):.2f} / "
+                f"graph {statistics.median(times['graph']):.2f} ms")
+    del bundles, ticks, g_ad
+    marks.append(("(c) probe", time.perf_counter() - t_phase))
+
+    # (d) the sweep's probes (live, flip TTA, the in-state EMA) at toy
+    # length, the whole sweep on the graph against eager
+    arts = {}
+    for mode in ("graph", "eager"):
+        ctx = eager_dispatch() if mode == "eager" else \
+            contextlib.nullcontext()
+        path = os.path.join(tmp, f"graphs-sweep-{mode}.json")
+        with ctx, contextlib.redirect_stdout(io.StringIO()):
+            arts[mode] = seed_sweep.main([
+                *SWEEP_ARGS, "--adapt-steps", str(GRAPH_SWEEP_ADAPT),
+                "--seeds", "1", "--set", "adapt.dam_ema=0.5", "--out", path])
+    curves = {m: json.loads(json.dumps(a["curves"])) for m, a in arts.items()}
+    rows_eq = json.loads(json.dumps(arts["graph"]["per_seed"])) == \
+        json.loads(json.dumps(arts["eager"]["per_seed"]))
+    recs = curves["graph"]["0"]
+    variants = [k for k in ("dice", "dice_tta", "dice_state_ema")
+                if all(k in r for r in recs)]
+    print(f"graphs (d) seed sweep at toy length, dispatch "
+          f"{arts['graph']['settings']['dispatch']} vs "
+          f"{arts['eager']['settings']['dispatch']}: {len(recs)} probe ticks"
+          f" of {variants}; curves "
+          f"{'equal' if curves['graph'] == curves['eager'] else 'DIFFER'}, "
+          f"per-seed rows {'equal' if rows_eq else 'DIFFER'}; live Dice "
+          f"{[r['dice'] for r in recs]}", flush=True)
+    if curves["graph"] != curves["eager"] or not rows_eq or \
+            len(variants) != 3 or not arts["graph"]["settings"][
+                "dispatch"]["graph"]:
+        fail("graphs (d): the sweep's probes differ between graph and eager")
+    marks.append(("(d) sweep", time.perf_counter() - t_phase))
+
+    # (e) a one-rank NCCL group: the host-sampler graph against one process
+    # (the group's step folds its rank, 0, into each step's seed)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        step = drivers._step(cfg, source.make_train_step, group,
+                             wrap=drivers._host_graph(cfg, DEVICE, group))
+        one = source.make_train_step(cfg)
+        state0 = source.init_state(cfg.run.seed, cfg, DEVICE)
+        feeds = [drivers.feed(t1_stream(), DEVICE) for _ in range(2)]
+        g_st, o_st = state0, state0
+        for i in range(NCCL_STEPS):
+            g_st, g_m = step(g_st, next(feeds[0]), 500 + i)
+            o_st, o_m = one(o_st, next(feeds[1]), prng.fold_in(500 + i, 0))
+        ok, n, bad = _tensors_equal(torch, g_st, o_st)
+        m_ok = set(g_m) == set(o_m) and all(float(g_m[k]) == float(o_m[k])
+                                            for k in g_m)
+        print(f"graphs (e) one-rank NCCL group, host-sampler T1 on the graph"
+              f" (dispatch {drivers.dispatch(DEVICE, group)}), {NCCL_STEPS} "
+              f"steps against one process: {n} state tensors "
+              f"{'bitwise equal' if ok else f'DIFFER {bad}'}, last metrics "
+              f"{'equal' if m_ok else 'DIFFER'}", flush=True)
+        if not ok or not m_ok:
+            fail(f"graphs (e): NCCL graph vs one process ({bad}, {g_m} vs "
+                 f"{o_m})")
+        del step, g_st, o_st, state0
+    finally:
+        dist.destroy_process_group()
+    marks.append(("(e) NCCL", time.perf_counter() - t_phase))
+
+    # (f) no fallback: a capture that would wait on the host raises, and so
+    # does a fed batch of another shape
+    def synced(x):
+        return x * float(x.sum())
+
+    raised = []
+    try:
+        cuda_graph.GraphedCall(synced, lambda x: x, DEVICE)(
+            torch.ones(8, device=DEVICE))
+    except RuntimeError as e:
+        raised.append(f"RuntimeError ({str(e).splitlines()[0][:80]})")
+    fed = cuda_graph.GraphedSteps(
+        lambda st, b, g: ({"w": st["w"] + b["x"].sum()}, {}), 1, fed=True)
+    st, _ = fed({"w": torch.zeros((), device=DEVICE)},
+                {"x": torch.ones(4, device=DEVICE)}, 1)
+    try:
+        fed(st, {"x": torch.ones(5, device=DEVICE)}, 2)
+    except ValueError as e:
+        raised.append(f"ValueError ({str(e)[:60]}...)")
+    print(f"graphs (f) a capture with a host sync: {raised[:1]}; a fed "
+          f"batch of another shape: {raised[1:]}", flush=True)
+    if len(raised) != 2 or not raised[0].startswith("RuntimeError"):
+        fail(f"graphs (f): expected two errors, got {raised}")
+    print(f"graphs on {card}: " + "; ".join(rows), flush=True)
+    launches = [wk.LAUNCHES, tk.LAUNCHES, fk.LAUNCHES]
+    print(f"graphs phase: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} by {t:.1f} s" for k, t in marks)
+          + f"); wrapper launches warp {launches[0]}, conv_stats "
+          f"{launches[1]}, fused conv {launches[2]}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3346,6 +3796,13 @@ def main() -> int:
         sc_w, sc_c = phase_scan(torch, wk, tk, tmp)
         warp_launches += sc_w
         conv_launches += sc_c
+
+        # 15. the last eager dispatch on CUDA graphs
+        gr_w, gr_c, gr_f = phase_graphs(torch, wk, tk, fk, cfg, tmp,
+                                        device_mod.card())
+        warp_launches += gr_w
+        conv_launches += gr_c
+        launches += gr_f
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -63,6 +63,7 @@ def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
                      labels: Sequence[np.ndarray], *, context: int = 3,
                      batch_size: int = 8, spacing=None,
                      structures: dict = STRUCTURES,
+                     single_dispatch: bool = True,
                      postprocess: Callable | None = None, fwd_args=(),
                      device="cuda") -> dict:
     """Evaluate ``forward(images, *fwd_args) -> probs`` over volumes ->
@@ -73,7 +74,8 @@ def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
     ``(pred_vol, structures) -> pred_vol`` filter, is applied to each
     predicted volume before its metrics; the unfiltered table is kept under
     ``agg["raw"]``.  ``agg["per_volume"]`` holds the per-structure metrics
-    of each volume in input order.
+    of each volume in input order.  ``single_dispatch`` as in
+    ``inference.predict_volume``.
     """
     per_vol, per_vol_raw = [], []
     for i, (vol, lab) in enumerate(zip(volumes, labels)):
@@ -82,6 +84,7 @@ def evaluate_volumes(forward: Callable, volumes: Sequence[np.ndarray],
             sp = spacing[i]
         pred = inference.predict_volume(forward, vol, context=context,
                                         batch_size=batch_size,
+                                        single_dispatch=single_dispatch,
                                         fwd_args=fwd_args, device=device)
         if postprocess is not None:
             per_vol_raw.append(_metrics_one(pred, lab, structures, sp))

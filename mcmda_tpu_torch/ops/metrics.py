@@ -21,3 +21,12 @@ def dice_per_class(pred_labels, true_labels, num_classes: int):
 
 def mean_foreground_dice(pred_labels, true_labels, num_classes: int):
     return dice_per_class(pred_labels, true_labels, num_classes)[1:].mean()
+
+
+def class_counts(labels, num_classes: int):
+    """[C] int64 counts of each class in an integer label map of any shape;
+    a label outside [0, C) (padding, -1) counts nowhere.  A one-hot sum:
+    ``torch.bincount`` reads its input's maximum on the host, which a CUDA
+    graph's capture refuses."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.reshape(-1, 1) == classes).sum(0)

@@ -26,9 +26,11 @@ Source training and the ``ev`` steps between two probes run as
 ``inner`` times per call (``drivers.pick_inner`` of the length, at most
 50: the JAX script's 50 at the shipped lengths).  Where it differs from
 the JAX script: the seeds are ``utils/prng.py``'s, so trajectories match
-the JAX package's only in distribution; the probes are torch functions on
-the device with one small read-back each; the artifact also records the
-card, the precision pins and the dispatch (``settings``).
+the JAX package's only in distribution; the probes (live, flip TTA and,
+with ``adapt.dam_ema`` > 0, the in-state EMA) run on the device with one
+small read-back each, each a CUDA graph on a GPU where the JAX script jits
+it; the artifact also records the card, the precision pins and the
+dispatch (``settings``).
 
 Usage (one H100: a source run of 20,000 steps, then about 15 minutes per
 seed at the shipped lengths)::
@@ -48,15 +50,18 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 from mcmda_tpu_torch import config as config_mod
 from mcmda_tpu_torch.data import pipeline, synthetic, volumes as vio
+from mcmda_tpu_torch.ops.metrics import class_counts
 from mcmda_tpu_torch.train import adapt as adapt_mod, drivers, loop, \
     source as source_mod
-from mcmda_tpu_torch.utils import device as device_mod, prng, tree
+from mcmda_tpu_torch.utils import cuda_graph, device as device_mod, prng, \
+    tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -73,11 +78,13 @@ def _pair_map(fn, *pairs):
 
 def _counts(preds, true_labels, num_classes):
     """(intersection[C], predicted count[C]) as f32: every row's prediction
-    counts, a row whose label is -1 (padding) intersects nothing."""
+    counts, a row whose label is -1 (padding) intersects nothing.  One-hot
+    sums (``class_counts``) with no shape that depends on the data, so that
+    a probe captures as a CUDA graph."""
     preds = preds.reshape(-1)
-    hit = preds[preds == true_labels.reshape(-1)]
-    return (torch.bincount(hit, minlength=num_classes).float(),
-            torch.bincount(preds, minlength=num_classes).float())
+    hit = torch.where(preds == true_labels.reshape(-1), preds, -1)
+    return (class_counts(hit, num_classes).float(),
+            class_counts(preds, num_classes).float())
 
 
 @torch.no_grad()
@@ -190,8 +197,7 @@ def main(argv=None) -> dict:
                                                 -1, test_lab.dtype)], 0) \
         if pad else test_lab
     true_labels = torch.from_numpy(lab_pad.astype(np.int64)).to(device)
-    true_sums = torch.bincount(true_labels[true_labels >= 0].reshape(-1),
-                               minlength=nc).float()
+    true_sums = class_counts(true_labels, nc).float()
 
     a_fwd = adapt_mod.adapted_forward(cfg)
 
@@ -200,15 +206,26 @@ def main(argv=None) -> dict:
         pf = a_fwd(st, xb.flip(2))
         return 0.5 * (p + pf.flip(2))
 
-    def probe_with(fwd):
+    def probe_with(fwd, use_avg=False):
+        """The probe of one variant: a CUDA graph on a GPU (as the JAX
+        script jits each), fed the state's eval weights."""
+        def dice_vec(inputs):
+            inter, psum, ment = device_dice(
+                types.SimpleNamespace(**inputs), vol_stacks, true_sums,
+                true_labels, fwd, nc)
+            d = 2.0 * inter / torch.clamp_min(psum + true_sums, 1e-6)
+            return torch.cat([d, psum / psum.sum(), ment[None]])
+
+        run = cuda_graph.call(
+            dice_vec, lambda inputs: fwd(types.SimpleNamespace(**inputs),
+                                         vol_stacks[0]), device, graph)
+
+        @torch.no_grad()
         def probe(state):
             """(dice[C], pred class fractions[C], mean entropy) on the
             eval volume, read back at once; dice needs labels (oracle),
             fractions / entropy do not."""
-            inter, psum, ment = device_dice(state, vol_stacks, true_sums,
-                                            true_labels, fwd, nc)
-            d = 2.0 * inter / torch.clamp_min(psum + true_sums, 1e-6)
-            host = torch.cat([d, psum / psum.sum(), ment[None]]).cpu()
+            host = run(adapt_mod.forward_inputs(state, use_avg)).cpu()
             return host[:nc].numpy(), host[nc:2 * nc].numpy(), \
                 float(host[-1])
         return probe
@@ -220,7 +237,7 @@ def main(argv=None) -> dict:
     state_ema_on = cfg.adapt.dam_ema > 0.0
     if state_ema_on:
         probe_state_ema = probe_with(adapt_mod.adapted_forward(
-            cfg, use_avg=True))
+            cfg, use_avg=True), use_avg=True)
 
     def mean_dice(d) -> float:
         return float(np.mean(d[1:]))  # classes 1..4 are the structures

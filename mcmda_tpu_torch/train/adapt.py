@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import types
 import warnings
 from typing import Any
 
@@ -45,9 +46,10 @@ from mcmda_tpu_torch.data import pipeline
 from mcmda_tpu_torch.models import critic as critic_mod
 from mcmda_tpu_torch.models import segmenter
 from mcmda_tpu_torch.ops import losses
+from mcmda_tpu_torch.ops.metrics import class_counts
 from mcmda_tpu_torch.parallel import dp
-from mcmda_tpu_torch.train import optim
-from mcmda_tpu_torch.utils import prng, tree
+from mcmda_tpu_torch.train import drivers, optim
+from mcmda_tpu_torch.utils import cuda_graph, prng, tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -577,14 +579,27 @@ def label_fractions(labels, num_classes: int):
     return counts / counts.sum()
 
 
+def forward_inputs(state, use_avg: bool = False) -> dict:
+    """The fields of ``state`` that ``adapted_forward(cfg, use_avg)``
+    reads (the others None): a probe's graph inputs.  The forward takes
+    them back as a namespace (``types.SimpleNamespace(**inputs)``)."""
+    avg = ("avg_dam", "avg_bn", "ema_w")
+    return {name: getattr(state, name) if use_avg or name not in avg
+            else None
+            for name in ("src_params", "dam_params", "tgt_bn") + avg}
+
+
 def make_class_ratio_probe(cfg: ExperimentConfig, probe_images,
                            use_avg: bool = False):
     """``state -> (predicted class fractions [C], mean prediction entropy)``
     as device tensors, over a fixed stack of unlabeled target slices
     ``probe_images`` [N,H,W,ctx], run batch by batch through the plain eval
-    forward.  The stack is padded to a multiple of the batch size by
-    repeating its last slice; padding rows count toward neither the
-    fractions nor the entropy."""
+    forward: one CUDA graph per tick on a GPU (the JAX package's jitted
+    scan), whose inputs are the state's eval weights (``forward_inputs``;
+    a donated train state's are read where they lie), eager on the CPU.
+    The stack is padded to a multiple of the batch size by repeating its
+    last slice; padding rows count toward neither the fractions nor the
+    entropy."""
     fwd = adapted_forward(cfg, use_avg=use_avg)
     b = cfg.data.batch_size
     n = probe_images.shape[0]
@@ -593,27 +608,33 @@ def make_class_ratio_probe(cfg: ExperimentConfig, probe_images,
     if pad:
         imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, 0)], 0)
     nc = cfg.data.num_classes
-    cache: dict = {}
+    runners: dict = {}
 
-    @torch.no_grad()
-    def probe(state: AdaptState):
-        device = state.step.device
-        if device not in cache:
-            cache[device] = torch.from_numpy(imgs).to(device)
-        x = cache[device]
-        counts = torch.zeros(nc, dtype=torch.int64, device=device)
-        ent_total = torch.zeros((), device=device)
+    def fractions(inputs, x):
+        state = types.SimpleNamespace(**inputs)
+        counts = torch.zeros(nc, dtype=torch.int64, device=x.device)
+        ent_total = torch.zeros((), device=x.device)
         for i in range(0, x.shape[0], b):
             v = max(0, min(b, n - i))  # valid rows of this batch
             probs = fwd(state, x[i:i + b])
             p = torch.clamp(probs.float(), 1e-8, 1.0)
             ent = -(p * torch.log(p)).sum(-1)
             ent_total = ent_total + ent[:v].sum()
-            counts += torch.bincount(probs[:v].argmax(-1).reshape(-1),
-                                     minlength=nc)
+            counts += class_counts(probs[:v].argmax(-1), nc)
         counts = counts.float()
         n_valid = float(n * x.shape[1] * x.shape[2])
         return counts / counts.sum(), ent_total / n_valid
+
+    @torch.no_grad()
+    def probe(state: AdaptState):
+        device = state.step.device
+        if device not in runners:
+            x = torch.from_numpy(imgs).to(device)
+            runners[device] = cuda_graph.call(
+                lambda inputs: fractions(inputs, x),
+                lambda inputs: fwd(types.SimpleNamespace(**inputs), x[:b]),
+                device, drivers.dispatch(device) == "graph")
+        return runners[device](forward_inputs(state, use_avg))
 
     return probe
 

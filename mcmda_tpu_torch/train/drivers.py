@@ -19,12 +19,13 @@ drawn from its own shard of the dataset.
 
 A device-resident step advances ``inner`` train steps per call
 (``loop.scanned_step``, with ``inner`` from ``pick_inner``, as in the JAX
-package).  ``dispatch`` decides, before anything is captured, how those
-steps run: on a CUDA device with no group or an NCCL group, one step is
-captured as a CUDA graph and replayed ``inner`` times (the counterpart of
-the JAX package's ``jax.jit`` of its ``lax.scan``); on the CPU, or over a
-gloo group, whose collectives run on the host and cannot be captured, the
-steps run eagerly.  The host-sampler path runs one eager step per call.
+package); a host-sampler step one.  ``dispatch`` decides, before anything
+is captured, how the steps run: on a CUDA device with no group or an NCCL
+group, one step is captured as a CUDA graph and replayed (``inner`` times
+per call on the device-resident data, once per fed batch on the host
+sampler's: the counterparts of the JAX package's jitted steps); on the
+CPU, or over a gloo group, whose collectives run on the host and cannot be
+captured, the steps run eagerly.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 from mcmda_tpu_torch.parallel import dp as dp_mod, mesh, multihost
 from mcmda_tpu_torch.train import loop
+from mcmda_tpu_torch.utils import cuda_graph
 
 
 def multihost_active() -> bool:
@@ -106,10 +108,10 @@ def pick_inner(*counts, cap: int = 50) -> int:
 
 
 def dispatch(device="cuda", group=None) -> str:
-    """How a device-resident step runs its inner steps: ``"graph"`` (a CUDA
-    graph of one step, replayed) on a CUDA device with no group or an NCCL
-    group, else ``"eager"`` (the CPU has no graphs; gloo collectives run on
-    the host and cannot be captured)."""
+    """How a step (or a serving or probe call) runs: ``"graph"`` (a CUDA
+    graph, replayed) on a CUDA device with no group or an NCCL group, else
+    ``"eager"`` (the CPU has no graphs; gloo collectives run on the host
+    and cannot be captured)."""
     if torch.device(device).type != "cuda":
         return "eager"
     if group is not None and \
@@ -124,9 +126,11 @@ def feed_line(on_device: bool, inner: int, dp: int = 0,
     many train steps a call runs and how."""
     group = dp_group(dp, device)
     feed_name = "device-resident" if on_device else "host-sampler"
+    graph = dispatch(device, group) == "graph"
     if not on_device:
-        how = "one eager step per call"
-    elif dispatch(device, group) == "graph":
+        how = ("one step per call on a CUDA graph" if graph
+               else "one eager step per call")
+    elif graph:
         how = f"{inner} steps per call on a CUDA graph"
     else:
         how = f"{inner} eager steps per call"
@@ -154,12 +158,25 @@ def feed_plumbing(cfg, dp: int = 0, device="cuda"):
 
 def wrap_dp(cfg, make_step, dp: int = 0, device="cuda", **mk_kwargs):
     """(step_fn, per-rank batch size, feed transform): ``make_step(cfg,
-    **mk_kwargs)`` fed by a host sampler through ``feed``; under data
-    parallelism built with the group and wrapped by
-    ``dp.data_parallel_step``."""
+    **mk_kwargs)`` fed by a host sampler through ``feed``, one step per
+    call: a CUDA graph of the step where ``dispatch`` says so
+    (``cuda_graph.GraphedSteps`` with a fed batch, ``cfg.run.donate``),
+    else the eager step; under data parallelism built with the group and
+    wrapped by ``dp.data_parallel_step`` and ``_replicating``, whose
+    broadcast of rank 0's state comes before the graph's capture."""
     group = dp_group(dp, device)
-    return _step(cfg, make_step, group, **mk_kwargs), \
-        cfg.data.batch_size, lambda s: feed(s, device)
+    return _step(cfg, make_step, group, wrap=_host_graph(cfg, device, group),
+                 **mk_kwargs), cfg.data.batch_size, lambda s: feed(s, device)
+
+
+def _host_graph(cfg, device, group):
+    """The wrap of a host-sampler step: a fed CUDA graph of one step
+    where ``dispatch`` says so, else None (the eager step)."""
+    if dispatch(device, group) != "graph":
+        return None
+    return lambda step: cuda_graph.GraphedSteps(step, 1,
+                                                donate=cfg.run.donate,
+                                                fed=True)
 
 
 def device_resident_dp(cfg, make_step, dp: int, inner: int, data_builder,

@@ -12,8 +12,13 @@ against an f64 conv is held to 4x the plain f32 conv's); the warp's image
 channels bitwise (``torch.equal``: its sampling coordinates and its blend
 round as the plain version's tensor operations do) and its renormalised
 label channels atol 1e-5 (the label sum's order may differ); the thin
-stem's gradients within 1e-4 of the largest.
+stem's gradients within 1e-4 of the largest.  The CUDA graphs (train
+steps, the fed host-sampler step, the one-graph volume, the probe) are
+held bitwise (``torch.equal``, ``np.array_equal``) to their eager runs:
+the same kernels in the same order.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -573,3 +578,157 @@ def test_graph_steps_equal_eager_steps(cuda_device, case, donate):
                 assert torch.equal(a, b)
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+# ------------------------------------------ the graphed calls and fed steps
+def _tiny_sources(cuda_device):
+    from mcmda_tpu_torch.data import synthetic, volumes
+    mri_v, mri_l = synthetic.make_dataset(0, "mri", 1, 8, 32)
+    ct_v, _ = synthetic.make_dataset(0, "ct", 1, 8, 32)
+    return (volumes.volumes_to_slices(mri_v, mri_l, context=3,
+                                      drop_empty=True),
+            volumes.volumes_to_slices(ct_v, context=3), ct_v[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["t1", "adapt"])
+def test_fed_graph_step_equals_eager_step(cuda_device, case):
+    """5 host batches through ``prefetch_to_device`` into
+    ``drivers.wrap_dp``'s step (a fed CUDA graph on a GPU) against the
+    eager step on the same batches and seeds: every state tensor and each
+    step's metrics ``torch.equal``; a batch of another shape raises."""
+    from mcmda_tpu_torch.train import adapt, drivers, source
+    from mcmda_tpu_torch.utils import cuda_graph, tree
+
+    saved = torch.backends.cudnn.deterministic
+    device_mod.resolve("cuda", deterministic=True)
+    try:
+        cfg = _tiny_train_config()
+        src, tgt, _ = _tiny_sources(cuda_device)
+        s0 = source.init_state(0, cfg, cuda_device)
+        if case == "t1":
+            make, state0 = source.make_train_step, s0
+
+            def batches():
+                return iter(pipeline.BatchSampler(src, 4, seed=1,
+                                                  num_classes=5))
+        else:
+            make = adapt.make_adapt_step
+            state0 = adapt.init_state(2, cfg, s0.params, s0.bn_state)
+
+            def batches():
+                return ({"src_image": a["image"], "tgt_image": b["image"]}
+                        for a, b in zip(pipeline.BatchSampler(src, 4, seed=3),
+                                        pipeline.BatchSampler(tgt, 4,
+                                                              seed=4)))
+
+        graph = drivers.wrap_dp(cfg, make, device=cuda_device)[0]
+        assert isinstance(graph, cuda_graph.GraphedSteps) and graph.fed
+        runs = []
+        for step in (make(cfg), graph):
+            feed = pipeline.prefetch_to_device(batches(), 2, cuda_device)
+            st, ms = state0, []
+            for i in range(5):
+                st, m = step(st, next(feed), 100 + i)
+                ms.append({k: v.clone() for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs.append((tree.leaves(st), ms))
+        (e_state, e_ms), (g_state, g_ms) = runs
+        assert len(e_state) == len(g_state)
+        for a, b in zip(g_state, e_state):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for gm, em in zip(g_ms, e_ms):
+            assert set(gm) == set(em)
+            for k in gm:
+                assert torch.equal(gm[k], em[k]), k
+        bad = {k: v[:2].clone() for k, v in next(iter(
+            pipeline.prefetch_to_device(batches(), 1, cuda_device))).items()}
+        with pytest.raises(ValueError, match="captured for a batch"):
+            graph(st, bad, 7)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plain", "fused"])
+def test_graphed_predict_volume_equals_batch_loop(cuda_device, path):
+    """``predict_volume``'s one-graph volume (the default) against its
+    eager batch loop, ``np.array_equal``: plain, flip TTA at a doubled
+    batch, and flip TTA with the weights as ``fwd_args`` (copied in per
+    call; a second volume replays the cached graph)."""
+    from mcmda_tpu_torch.evaluation import inference
+    from mcmda_tpu_torch.train import source
+
+    cfg = _tiny_train_config()
+    s0 = source.init_state(0, cfg, cuda_device)
+    apply = segmenter.apply if path == "plain" else segmenter.apply_fused_eval
+
+    def fwd(x, params, bn):
+        return apply(params, bn, x, cfg.segmenter)[1]
+
+    _, _, vol = _tiny_sources(cuda_device)
+    vols = [vol[:7], vol[1:8]]  # 7 slices at batch 4: a pad row
+    args = (s0.params, s0.bn_state)
+    with torch.inference_mode():
+        for f, fwd_args in ((lambda x: fwd(x, *args), ()),
+                            (inference.tta_flip(lambda x: fwd(x, *args)), ()),
+                            (inference.tta_flip(fwd), args)):
+            for v in vols:
+                got = inference.predict_volume(f, v, batch_size=4,
+                                               fwd_args=fwd_args,
+                                               device=cuda_device)
+                want = inference.predict_volume(f, v, batch_size=4,
+                                                single_dispatch=False,
+                                                fwd_args=fwd_args,
+                                                device=cuda_device)
+                assert got.shape == v.shape and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_avg", [False, True])
+def test_graphed_probe_equals_eager_probe(cuda_device, use_avg,
+                                          monkeypatch):
+    """The class-ratio probe on a CUDA graph against the same probe run
+    eagerly: fractions and entropy ``torch.equal``, at the first call and
+    after the weights change (copied into the graph's own buffers)."""
+    from mcmda_tpu_torch.train import adapt, drivers, source
+    from mcmda_tpu_torch.utils import tree
+
+    cfg = _tiny_train_config(dam_ema=0.5)
+    s0 = source.init_state(0, cfg, cuda_device)
+    state = adapt.init_state(2, cfg, s0.params, s0.bn_state)
+    rng = np.random.default_rng(5)
+    state = dataclasses.replace(
+        state, ema_w=torch.tensor(0.4, device=cuda_device),
+        avg_dam=tree.tree_map(lambda a: a * 0.3, state.dam_params),
+        avg_bn=tree.tree_map(lambda a: a * 0.4, state.tgt_bn))
+    imgs = rng.normal(size=(9, 32, 32, 3)).astype(np.float32)
+    graph = adapt.make_class_ratio_probe(cfg, imgs, use_avg=use_avg)
+    monkeypatch.setattr(drivers, "dispatch", lambda *a: "eager")
+    eager = adapt.make_class_ratio_probe(cfg, imgs, use_avg=use_avg)
+    monkeypatch.undo()
+    other = dataclasses.replace(state, dam_params=tree.tree_map(
+        lambda a: a * 1.05, state.dam_params))
+    for st in (state, other, state):
+        (gf, ge), (ef, ee) = graph(st), eager(st)
+        assert torch.equal(gf, ef) and torch.equal(ge, ee)
+
+
+@pytest.mark.cuda
+def test_graphed_call_capture_with_a_host_sync_raises(cuda_device):
+    """A captured function that reads a value on the host raises under
+    the capture's sync debug mode: nothing falls back to eager."""
+    from mcmda_tpu_torch.utils import cuda_graph
+
+    def synced(x):
+        return x * float(x.sum())
+
+    run = cuda_graph.GraphedCall(synced, lambda x: x * 2, cuda_device)
+    with pytest.raises(RuntimeError):
+        run(torch.ones(8, device=cuda_device))
+    plain = cuda_graph.GraphedCall(lambda x: x * 2, lambda x: x * 2,
+                                   cuda_device)
+    assert torch.equal(plain(torch.ones(8)), torch.full((8,), 2.0,
+                                                        device=cuda_device))
+    with pytest.raises(ValueError, match="captured for a call"):
+        plain(torch.ones(9))
