@@ -61,7 +61,8 @@ Phases (any failure ends the run non-zero):
    one step each of the kernel and the plain path with f32 source features
    (step-1 losses of each kernel/plain pair within STEP1_RTOL); the
    step-1 pair over STEP1_SEEDS step seeds from one state, f32 and bf16
-   source features, beside a precision control (see STEP1_SEEDS).
+   source features, and bf16 with both paths on the plain warp, beside a
+   precision control (see STEP1_SEEDS).
    Checks the launches per step, finite losses, selection.json, the
    materialized selected checkpoint and the snapshot PNGs; times
    ``make_adapt_step`` on both paths.
@@ -282,7 +283,12 @@ STEP1_RTOL = 1e-3
 # flip folded into the warp) and of the conv + moments kernel's sums flip
 # bf16 roundings, so no limit on the bf16 pair tells the kernel from a
 # precision change; it is held to SPREAD_BF16_RTOL, 1.5x its largest
-# reading, against gross faults only.
+# reading, against gross faults only.  The pair with teeth runs both
+# paths on the plain warp (``data.warp=xla``): the augmented batch and
+# the bf16 source features (no conv + moments call) are then identical,
+# only the kernel's summation order in the f32 target forward differs,
+# and it is held to SPREAD_F32_RTOL with bf16 source features too: it read
+# 2.0e-7 to 1.1e-6 on an H100, the control 7.9e-4 to 3.7e-3.
 STEP1_SEEDS = 8
 SPREAD_F32_RTOL = 5e-4
 SPREAD_BF16_RTOL = 2.5e-3
@@ -1395,7 +1401,8 @@ def step1_spread(torch, setup):
     as many batch and augmentation draws, with the shipped bf16 source
     features and with f32 ones.  Per seed the larger relative difference
     in d_loss and g_loss: the kernel/plain pairs held to SPREAD_F32_RTOL
-    (f32) and SPREAD_BF16_RTOL (bf16), and the control, the plain path
+    (f32, and bf16 with both paths on the plain warp) and SPREAD_BF16_RTOL
+    (bf16 as shipped), and the control, the plain path
     with bf16 against f32 source features (the precision of the features,
     not the summation order, changed), which must exceed SPREAD_F32_RTOL
     at every seed (see STEP1_SEEDS)."""
@@ -1404,14 +1411,17 @@ def step1_spread(torch, setup):
 
     data, params, bn = setup
     loss = {}
-    for name, sets in ADAPT_PATHS:
-        for feats, extra in (("bf16", []), ("f32", [F32_SRC])):
-            cfg = config_mod.load_config(CONFIG, [*sets, *extra])
-            state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
-            step = adapt.make_adapt_step(cfg, sample_from_device=True)
-            loss[name, feats] = [
-                {k: float(v) for k, v in step(state, data, seed)[1].items()}
-                for seed in range(STEP1_SEEDS)]
+    runs = [(name, sets, feats, extra) for name, sets in ADAPT_PATHS
+            for feats, extra in (("bf16", []), ("f32", [F32_SRC]))]
+    runs.append(("kernel-xla", ["data.warp=xla", *ADAPT_PATHS[0][1]],
+                 "bf16", []))
+    for name, sets, feats, extra in runs:
+        cfg = config_mod.load_config(CONFIG, [*sets, *extra])
+        state = adapt.init_state(cfg.run.seed + 2, cfg, params, bn)
+        step = adapt.make_adapt_step(cfg, sample_from_device=True)
+        loss[name, feats] = [
+            {k: float(v) for k, v in step(state, data, seed)[1].items()}
+            for seed in range(STEP1_SEEDS)]
 
     def rel(a, b):
         return [max(abs(x[k] - y[k]) / abs(y[k]) for k in ("d_loss",
@@ -1420,17 +1430,21 @@ def step1_spread(torch, setup):
 
     pair = rel(("kernel", "bf16"), ("plain", "bf16"))
     pair32 = rel(("kernel", "f32"), ("plain", "f32"))
+    pair_xla = rel(("kernel-xla", "bf16"), ("plain", "bf16"))
     control = rel(("plain", "bf16"), ("plain", "f32"))
     print(f"adapt step-1 over {STEP1_SEEDS} step seeds, kernel / plain, "
           f"largest of d_loss and g_loss rel: f32 source "
           f"{[f'{r:.2e}' for r in pair32]} (held to {SPREAD_F32_RTOL}); "
           f"bf16 source {[f'{r:.2e}' for r in pair]} (held to "
-          f"{SPREAD_BF16_RTOL}); control, plain bf16 / f32 source "
+          f"{SPREAD_BF16_RTOL}); bf16 source, both on the plain warp "
+          f"{[f'{r:.2e}' for r in pair_xla]} (held to {SPREAD_F32_RTOL}); "
+          f"control, plain bf16 / f32 source "
           f"{[f'{r:.2e}' for r in control]} (must exceed "
           f"{SPREAD_F32_RTOL})", flush=True)
-    if max(pair32) > SPREAD_F32_RTOL or max(pair) > SPREAD_BF16_RTOL:
+    if max(pair32) > SPREAD_F32_RTOL or max(pair) > SPREAD_BF16_RTOL \
+            or max(pair_xla) > SPREAD_F32_RTOL:
         fail(f"adapt step-1 kernel/plain over seeds: f32 {pair32}, bf16 "
-             f"{pair}")
+             f"{pair}, bf16 on the plain warp {pair_xla}")
     if min(control) <= SPREAD_F32_RTOL:
         fail(f"adapt step-1 control {control} within {SPREAD_F32_RTOL}: "
              "the f32 limit cannot tell a precision change from the "

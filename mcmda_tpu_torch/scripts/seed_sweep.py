@@ -18,7 +18,13 @@ per seed (a probe every ``--eval-every`` steps, by default the config's
 plus the block-level EMA variants, flip TTA and the reservoir's soup /
 ensemble candidates, and mean +/- spread aggregates over seeds.  The
 output is rewritten after every seed; ``--first-seed`` with ``--merge``
-resumes a sweep or adds seeds.
+resumes a sweep or adds seeds.  ``settings`` records the lengths that ran
+(``source_steps``, ``adapt_steps``, ``eval_every``) and ``source_digest``,
+a sha256 of the trained source state; ``--merge`` refuses a file whose
+lengths, digest or ``no_adapt`` differ from this call's, so that rows of
+different source runs are never pooled.  ``--save-source`` writes the
+trained source state and ``--source-ckpt`` loads it instead of training,
+for a sweep split over machines that keep no run directory.
 
 Source training and the ``ev`` steps between two probes run as
 ``loop.scanned_step`` on the device-resident data, as the JAX script's
@@ -32,11 +38,18 @@ small read-back each, each a CUDA graph on a GPU where the JAX script jits
 it; the artifact also records the card, the precision pins and the
 dispatch (``settings``).
 
-Usage (one H100: a source run of 20,000 steps, then about 15 minutes per
-seed at the shipped lengths)::
+Usage (one H100: a source run of 20,000 steps, about 20 minutes on the
+graph, then about 10 minutes per mri2ct seed at the shipped lengths; see
+PERF.md)::
 
     python -m mcmda_tpu_torch.scripts.seed_sweep --direction mri2ct \\
-        --seeds 5 --set segmenter.train_fused=pallas \\
+        --seeds 2 --set segmenter.train_fused=pallas \\
+        --save-source <dir>/mri2ct_source.npz \\
+        --out results/torch_h100/mri2ct_seed_sweep.json
+    # a later call: more seeds on the same source state
+    python -m mcmda_tpu_torch.scripts.seed_sweep --direction mri2ct \\
+        --first-seed 2 --seeds 3 --merge --set segmenter.train_fused=pallas \\
+        --source-ckpt <dir>/mri2ct_source.npz \\
         --out results/torch_h100/mri2ct_seed_sweep.json
 """
 
@@ -44,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -60,8 +74,9 @@ from mcmda_tpu_torch.data import pipeline, synthetic, volumes as vio
 from mcmda_tpu_torch.ops.metrics import class_counts
 from mcmda_tpu_torch.train import adapt as adapt_mod, drivers, loop, \
     source as source_mod
-from mcmda_tpu_torch.utils import cuda_graph, device as device_mod, prng, \
-    tree
+from mcmda_tpu_torch import weights
+from mcmda_tpu_torch.utils import checkpoint, cuda_graph, \
+    device as device_mod, prng, tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -85,6 +100,27 @@ def _counts(preds, true_labels, num_classes):
     hit = torch.where(preds == true_labels.reshape(-1), preds, -1)
     return (class_counts(hit, num_classes).float(),
             class_counts(preds, num_classes).float())
+
+
+@torch.no_grad()
+def source_digest(params, bn_state) -> str:
+    """sha256 of the trained source state: the params' then the BN state's
+    leaves in tree order, as little-endian f32 bytes, read back at once.
+    Two sweeps whose rows may be pooled hold the same digest."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in
+                      tree.leaves(params) + tree.leaves(bn_state)])
+    flat = flat.cpu()
+    return hashlib.sha256(flat.numpy().astype("<f4").tobytes()).hexdigest()
+
+
+def merge_mismatch(prev: dict, current: dict) -> list:
+    """The names of the keys of ``current`` (settings of this call, or
+    ``no_adapt``) whose value in the artifact ``prev`` differs, each with
+    both values: rows of sweeps that differ in any of them are never
+    pooled."""
+    got = {**prev.get("settings", {}), "no_adapt": prev.get("no_adapt")}
+    return [f"{k} (file {got.get(k)!r}, this call {v!r})"
+            for k, v in current.items() if got.get(k) != v]
 
 
 @torch.no_grad()
@@ -138,6 +174,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preload per-seed rows from an existing --out and "
                         "merge (resume after a crash / add seeds)")
     p.add_argument("--device", default="cuda")
+    # a sweep split over several calls of a machine that keeps no run
+    # directory: one call saves its trained source state, later ones load
+    # it (the digest in ``settings`` shows it is the same state)
+    p.add_argument("--save-source", default=None, metavar="NPZ",
+                   help="write the trained source state (params, BN, step) "
+                        "to this npz file")
+    p.add_argument("--source-ckpt", default=None, metavar="NPZ",
+                   help="load the source state from an npz file written by "
+                        "--save-source instead of training it")
     return p
 
 
@@ -164,24 +209,62 @@ def main(argv=None) -> dict:
     test_vol, test_lab = tv[-1], tl[-1]
     nc = cfg.data.num_classes
 
+    path = args.out or os.path.join("results", "torch_h100",
+                                    f"{args.direction}_seed_sweep.json")
+    ev = args.eval_every or cfg.adapt.select_every or 250
+    lengths = {"source_steps": cfg.source.steps,
+               "adapt_steps": cfg.adapt.steps, "eval_every": ev}
+    prev = None
+    if args.merge and os.path.exists(path):
+        with open(path) as f:
+            prev = json.load(f)
+        if prev.get("direction") != args.direction or \
+                prev.get("overrides", []) != list(args.set or []):
+            raise SystemExit(f"[sweep] refuse to merge into {path}: "
+                             "direction/overrides mismatch")
+        differs = merge_mismatch(prev, lengths)
+        if differs:  # refused before the source run
+            raise SystemExit(f"[sweep] refuse to merge into {path}: "
+                             + "; ".join(differs) + " differ")
+
     # ---- source training (once, device-resident steps) ----
-    print(f"[sweep] source training {cfg.source.steps} steps...", flush=True)
     t0 = time.time()
     src_ds = vio.volumes_to_slices(src_vols, src_labs,
                                    context=cfg.data.context_slices,
                                    drop_empty=True)
-    s_state = source_mod.init_state(cfg.run.seed, cfg, device)
     graph = drivers.dispatch(device) == "graph"
     inner_src = drivers.pick_inner(cfg.source.steps)
-    s_step = loop.scanned_step(
-        source_mod.make_train_step(cfg, sample_from_device=True), inner_src,
-        graph=graph, donate=cfg.run.donate)
-    s_state, _ = loop.run(
-        s_step, s_state,
-        itertools.repeat(pipeline.to_device_arrays(src_ds, nc, device)),
-        cfg.source.steps, seed=cfg.run.seed, log_every=0,
-        inner_steps=inner_src)
-    print(f"[sweep] source done in {time.time() - t0:.0f}s", flush=True)
+    if args.source_ckpt:
+        params, bn_state = weights.restore_source(args.source_ckpt, cfg,
+                                                  device)
+        done = int(weights.read_checkpoint(args.source_ckpt)[".step"])
+        if done != cfg.source.steps:
+            raise SystemExit(f"[sweep] {args.source_ckpt} holds a source "
+                             f"run of {done} steps, this call asks for "
+                             f"{cfg.source.steps}")
+        s_state = source_mod.SourceState(
+            params, bn_state, None,
+            torch.tensor(done, dtype=torch.int32, device=device))
+        print(f"[sweep] source state loaded from {args.source_ckpt}",
+              flush=True)
+    else:
+        print(f"[sweep] source training {cfg.source.steps} steps...",
+              flush=True)
+        s_state = source_mod.init_state(cfg.run.seed, cfg, device)
+        s_step = loop.scanned_step(
+            source_mod.make_train_step(cfg, sample_from_device=True),
+            inner_src, graph=graph, donate=cfg.run.donate)
+        s_state, _ = loop.run(
+            s_step, s_state,
+            itertools.repeat(pipeline.to_device_arrays(src_ds, nc, device)),
+            cfg.source.steps, seed=cfg.run.seed, log_every=0,
+            inner_steps=inner_src)
+        print(f"[sweep] source done in {time.time() - t0:.0f}s", flush=True)
+        if args.save_source:
+            checkpoint.save(args.save_source.removesuffix(".npz"),
+                            dataclasses.replace(s_state, opt_state=None))
+    digest = source_digest(s_state.params, s_state.bn_state)
+    print(f"[sweep] source digest {digest}", flush=True)
 
     # test volume as device-resident stacks + labels (-1 on padding rows)
     stacked = vio.stack_context(test_vol, cfg.data.context_slices)
@@ -262,12 +345,17 @@ def main(argv=None) -> dict:
     no_adapt = mean_dice(probe_of(base_state)[0])
     print(f"[sweep] no-adapt mean Dice: {no_adapt:.3f}", flush=True)
     del base_state
+    if prev is not None:
+        differs = merge_mismatch(prev, {"source_digest": digest,
+                                        "no_adapt": round(no_adapt, 4)})
+        if differs:
+            raise SystemExit(f"[sweep] refuse to merge into {path}: "
+                             + "; ".join(differs) + " differ")
 
     # ---- adaptation sweep ----
     tgt_ds = vio.volumes_to_slices(tgt_train, context=cfg.data.context_slices)
     device_data = {"src": pipeline.to_device_arrays(src_ds, device=device),
                    "tgt": pipeline.to_device_arrays(tgt_ds, device=device)}
-    ev = args.eval_every or cfg.adapt.select_every or 250
     n_blocks = cfg.adapt.steps // ev
     inner_ad = drivers.pick_inner(ev)
     calls = ev // inner_ad
@@ -306,8 +394,6 @@ def main(argv=None) -> dict:
         return _pair_map(lambda a: a.detach().cpu(),
                          (state.dam_params, state.tgt_bn))
 
-    path = args.out or os.path.join("results", "torch_h100",
-                                    f"{args.direction}_seed_sweep.json")
     commit = _commit()
     card = device_mod.card() if device.type == "cuda" else None
 
@@ -328,7 +414,8 @@ def main(argv=None) -> dict:
                "time": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
                "overrides": list(args.set or []),
                "card": card,
-               "settings": {**device_mod.settings(), "dispatch": dispatch},
+               "settings": {**device_mod.settings(), "dispatch": dispatch,
+                            **lengths, "source_digest": digest},
                "no_adapt": round(no_adapt, 4),
                "final": agg("final"), "selected": agg("selected"),
                "selected_cr": agg("selected_cr"),
@@ -358,13 +445,7 @@ def main(argv=None) -> dict:
         return out
 
     rows = []
-    if args.merge and os.path.exists(path):
-        with open(path) as f:
-            prev = json.load(f)
-        if prev.get("direction") != args.direction or \
-                prev.get("overrides", []) != list(args.set or []):
-            raise SystemExit(f"[sweep] refuse to merge into {path}: "
-                             "direction/overrides mismatch")
+    if prev is not None:
         todo = set(range(args.first_seed, args.first_seed + args.seeds))
         rows = [{**r, "curve": prev["curves"][str(r["seed"])]}
                 for r in prev["per_seed"] if r["seed"] not in todo]

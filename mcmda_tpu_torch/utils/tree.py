@@ -18,8 +18,12 @@ def tree_map(fn, *trees):
 
 def _walk(node, visit):
     """A function that rebuilds ``node`` from an iterator of new leaves;
-    ``visit`` sees each leaf (each tensor) in order.  Any other value that
-    is not a container (None, a number) is a constant, kept as it is."""
+    ``visit`` sees each leaf (each tensor) in order: dict keys sorted at
+    every level, as ``jax.tree_util`` flattens them, so that two trees with
+    the same keys give their leaves in one order whatever order their dicts
+    were built in (a BN state built at init and the one a train forward
+    returns).  Any other value that is not a container (None, a number) is
+    a constant, kept as it is."""
     if isinstance(node, torch.Tensor):
         visit(node)
         return lambda it: next(it)
@@ -35,13 +39,13 @@ def _walk(node, visit):
         subs = [_walk(v, visit) for v in node]
         return lambda it: type(node)(b(it) for b in subs)
     if isinstance(node, dict):
-        subs = {k: _walk(v, visit) for k, v in node.items()}
+        subs = {k: _walk(node[k], visit) for k in sorted(node)}
         return lambda it: {k: b(it) for k, b in subs.items()}
     return lambda it: node
 
 
 def leaves(tree) -> list:
-    """The tensors of ``tree`` in order (dicts in key order)."""
+    """The tensors of ``tree`` in order (dict keys sorted, as JAX's)."""
     out: list = []
     _walk(tree, out.append)
     return out

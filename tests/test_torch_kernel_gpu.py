@@ -690,7 +690,9 @@ def test_graphed_probe_equals_eager_probe(cuda_device, use_avg,
                                           monkeypatch):
     """The class-ratio probe on a CUDA graph against the same probe run
     eagerly: fractions and entropy ``torch.equal``, at the first call and
-    after the weights change (copied into the graph's own buffers)."""
+    after the weights change (copied into the graph's own buffers), also
+    when a state's dicts hold their keys in another order (each leaf goes
+    to its key's buffer)."""
     from mcmda_tpu_torch.train import adapt, drivers, source
     from mcmda_tpu_torch.utils import tree
 
@@ -709,7 +711,14 @@ def test_graphed_probe_equals_eager_probe(cuda_device, use_avg,
     monkeypatch.undo()
     other = dataclasses.replace(state, dam_params=tree.tree_map(
         lambda a: a * 1.05, state.dam_params))
-    for st in (state, other, state):
+
+    def reordered(node):
+        if isinstance(node, dict):
+            return {k: reordered(node[k]) for k in reversed(list(node))}
+        return node * 1.1
+
+    shuffled = dataclasses.replace(other, tgt_bn=reordered(other.tgt_bn))
+    for st in (state, other, shuffled, state):
         (gf, ge), (ef, ee) = graph(st), eager(st)
         assert torch.equal(gf, ef) and torch.equal(ge, ee)
 

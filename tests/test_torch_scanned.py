@@ -252,6 +252,45 @@ def test_tree_walks_training_states(tiny_config, case):
         {"a": None, "b": (1, new[0])}
 
 
+def test_tree_order_is_jax_order_whatever_the_dicts_were_built_in(
+        tiny_config):
+    """A train forward returns its BN state with the keys in forward order
+    (a projected block's ``bn_p`` before its ``bn2``); ``segmenter.init``,
+    and a source state restored from a checkpoint, hold them in init order.
+    ``tree.leaves`` gives both in ``jax.tree_util``'s order (keys sorted),
+    so a graph's static buffers, which are filled by position, take each
+    leaf at its own key.  In insertion order a seed sweep on a loaded
+    source state copied ``bn2``'s running statistics into ``bn_p``'s
+    buffers and back: same shapes, so nothing raised (exact: identity of
+    the leaves)."""
+    import jax
+
+    from mcmda_tpu_torch.models import segmenter
+
+    cfg = _port_cfg(tiny_config)
+    params, init_bn = segmenter.init(cfg.segmenter, device="cpu")
+    x = torch.zeros(2, cfg.data.slice_size, cfg.data.slice_size,
+                    cfg.data.context_slices)
+    fwd_bn = segmenter.apply(params, init_bn, x, cfg.segmenter,
+                             train=True)[3]
+
+    def by_path(node, pre=""):
+        if isinstance(node, dict):
+            return {p: t for k, v in node.items()
+                    for p, t in by_path(v, f"{pre}/{k}").items()}
+        return {pre: node}
+
+    # the fault's premise: the two BN states list their keys in two orders
+    assert list(by_path(init_bn)) != list(by_path(fwd_bn))
+    assert sorted(by_path(init_bn)) == sorted(by_path(fwd_bn))
+    for bn in (init_bn, fwd_bn):
+        assert [id(t) for t in tree.leaves(bn)] == \
+            [id(t) for t in jax.tree_util.tree_leaves(bn)]
+    # a state built in one order, filled from one built in the other
+    filled = by_path(tree.unflatten(init_bn, tree.leaves(fwd_bn)))
+    assert all(filled[p] is t for p, t in by_path(fwd_bn).items())
+
+
 def test_dispatch_is_eager_on_the_cpu():
     assert drivers.dispatch("cpu") == "eager"
     assert drivers.dispatch("cuda") == "graph"

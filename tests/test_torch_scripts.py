@@ -5,6 +5,7 @@ reference's within 1e-6), the synthetic-benchmark twin (writes only under
 its ``--results-dir``), the serving-agreement script and the MMWHS
 preprocessing twin (output equal to the reference script's)."""
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -117,9 +118,14 @@ def test_sweep_artifact_has_the_reference_keys(sweep):
         assert all(set(c) == set(ref_curve) for c in curve)
     assert all(0.0 <= art["final"][k] <= 1.0 for k in ("mean", "min"))
     assert set(art["settings"]) == {"tf32", "cudnn_deterministic",
-                                    "dispatch"}
+                                    "dispatch", "source_steps",
+                                    "adapt_steps", "eval_every",
+                                    "source_digest"}
     assert art["settings"]["dispatch"] == {
         "graph": False, "inner_source": 3, "inner_adapt": 2, "donate": True}
+    assert (art["settings"]["source_steps"], art["settings"]["adapt_steps"],
+            art["settings"]["eval_every"]) == (3, 6, 2)
+    assert len(art["settings"]["source_digest"]) == 64
     assert art["card"] is None  # no card on the CPU
 
 
@@ -147,10 +153,105 @@ def test_sweep_merge_refuses_other_overrides(cfg_dir, sweep, tmp_path):
                "--set", "adapt.d_acc_cap=0.9")
 
 
+@pytest.mark.parametrize("key,value", [
+    ("source_digest", "0" * 64), ("no_adapt", -1.0)])
+def test_sweep_merge_refuses_another_source(cfg_dir, sweep, tmp_path, key,
+                                            value):
+    """A file whose source state (digest) or no-adapt Dice differs from
+    this call's holds rows of another source run: refused, naming it."""
+    out, _ = sweep
+    prev = json.loads(out.read_text())
+    if key == "no_adapt":
+        prev[key] = value
+    else:
+        prev["settings"][key] = value
+    path = tmp_path / "sweep.json"
+    path.write_text(json.dumps(prev))
+    with pytest.raises(SystemExit, match=f"refuse to merge.*{key}"):
+        _sweep(cfg_dir, path, "--first-seed", "1", "--seeds", "1",
+               "--eval-every", "2", "--merge")
+    assert json.loads(path.read_text()) == prev
+
+
+@pytest.mark.parametrize("extra,key", [
+    (("--eval-every", "3"), "eval_every"),
+    (("--eval-every", "2", "--adapt-steps", "4"), "adapt_steps"),
+    (("--eval-every", "2", "--source-steps", "2"), "source_steps")])
+def test_sweep_merge_refuses_other_lengths(cfg_dir, sweep, tmp_path, extra,
+                                           key):
+    """A call at other lengths or another cadence than the file's is
+    refused before it trains anything, naming what differs."""
+    out, _ = sweep
+    path = tmp_path / "sweep.json"
+    path.write_text(out.read_text())
+    with pytest.raises(SystemExit, match=f"refuse to merge.*{key}"):
+        seed_sweep.main([
+            "--direction", "mri2ct", "--config",
+            str(cfg_dir / "mri2ct.json"), "--device", "cpu", "--volumes",
+            "2", "--depth", "16", "--source-steps", "3", "--adapt-steps",
+            "6", "--out", str(path), "--first-seed", "1", "--seeds", "1",
+            "--merge", *extra])
+
+
+def test_sweep_carried_source_merges_bitwise(cfg_dir, sweep, tmp_path):
+    """A call that saves its source state and a later one that loads it
+    (``--save-source`` / ``--source-ckpt``, a sweep split over machines
+    that keep no run directory) hold one digest, and the later call's
+    seed reproduces the one-call sweep's row and curve bitwise."""
+    out, art = sweep
+    npz = tmp_path / "source.npz"
+    first = _sweep(cfg_dir, tmp_path / "a.json", "--seeds", "1",
+                   "--eval-every", "2", "--save-source", str(npz))
+    assert first["settings"] == art["settings"]
+    path = tmp_path / "b.json"
+    path.write_text(json.dumps(first))
+    merged = _sweep(cfg_dir, path, "--first-seed", "1", "--seeds", "1",
+                    "--eval-every", "2", "--merge", "--source-ckpt",
+                    str(npz))
+    merged, art = json.loads(json.dumps(merged)), json.loads(json.dumps(art))
+    assert merged["settings"] == art["settings"]
+    assert merged["per_seed"] == art["per_seed"]
+    assert merged["curves"] == art["curves"]
+    with pytest.raises(SystemExit, match="holds a source run of 3 steps"):
+        _sweep(cfg_dir, tmp_path / "c.json", "--seeds", "1",
+               "--source-steps", "4", "--source-ckpt", str(npz))
+
+
 def test_sweep_cadence_defaults_to_select_every(cfg_dir, tmp_path):
     art = _sweep(cfg_dir, tmp_path / "s.json", "--seeds", "1",
                  "--set", "adapt.select_every=3")
     assert [c["step"] for c in art["curves"][0]] == [3, 6]
+
+
+def test_source_digest_in_jax_tree_order():
+    """The digest hashes the leaves in ``jax.tree_util`` order (dict keys
+    sorted at every level), as little-endian f32: a state whose dicts were
+    built in another order (a trained BN state is rebuilt in forward
+    order) has the same digest, and one changed bit changes it."""
+    rng = np.random.default_rng(0)
+    params = {"rm2": {"w": rng.normal(size=(3, 3, 2, 4)),
+                      "b": rng.normal(size=4)},
+              "rm1": {"conv": {"w": rng.normal(size=(2, 5))}}}
+    bn = {"rm2": {"var": rng.uniform(size=4), "mean": rng.normal(size=4)}}
+    params = jax.tree_util.tree_map(lambda x: x.astype(np.float32), params)
+    bn = jax.tree_util.tree_map(lambda x: x.astype(np.float32), bn)
+    leaves = jax.tree_util.tree_leaves(params) + jax.tree_util.tree_leaves(bn)
+    want = hashlib.sha256(np.concatenate(
+        [x.ravel() for x in leaves]).astype("<f4").tobytes()).hexdigest()
+
+    def to_torch(tree, reverse=False):
+        if isinstance(tree, dict):
+            keys = sorted(tree, reverse=reverse)
+            return {k: to_torch(tree[k], reverse) for k in keys}
+        return torch.from_numpy(tree.copy())
+
+    assert seed_sweep.source_digest(to_torch(params), to_torch(bn)) == want
+    assert seed_sweep.source_digest(to_torch(params, True),
+                                    to_torch(bn, True)) == want
+    flipped = to_torch(bn)
+    flipped["rm2"]["var"][0] = float(np.nextafter(bn["rm2"]["var"][0],
+                                                  np.float32(2)))
+    assert seed_sweep.source_digest(to_torch(params), flipped) != want
 
 
 def _reference_sweep_module():
