@@ -162,6 +162,15 @@ Phases (any failure ends the run non-zero):
    one-rank NCCL group's host-sampler graph, NCCL_STEPS steps, bitwise one
    process; (f) a capture that syncs with the host and a fed batch of
    another shape raise.
+16. bench: ``python -m mcmda_tpu_torch.bench`` (the port's twin of the
+   JAX package's ``bench.py``) in a process of its own, at BENCH_ARGS'
+   shortened run length: its last line must hold every key of
+   ``bench.py``'s ``extra``, every figure in it finite and positive (the
+   step-1 differences not negative), every share (``*_mfu_*``,
+   ``*_utilization_*``) at most 1.05, the measured peaks under the
+   published ones (PUBLISHED) and the kernels launched on its timed paths
+   (the bench's own count: its launches do not enter the kernels line);
+   prints the line and the phase's seconds.
 
 Launch counts: each kernel's wrapper counts its launches on the host, a
 launch that runs at once and one that a CUDA graph capture records alike;
@@ -364,6 +373,12 @@ DP_DACC_RTOL = 1e-5
 DP_GRAD_RTOL = 1e-2
 DP_TIMEOUT = 300
 DP_CLI_STEPS = 4
+# phase 16: the bench at a shortened run length (its defaults are 5 calls
+# of 50 steps), against the published peaks of one H100 SXM
+BENCH_ARGS = ["--calls", "3", "--steps", "10"]
+BENCH_TIMEOUT = 600
+PUBLISHED = {"measured_peak_tflops": 989.0, "measured_peak_tflops_f32": 67.0,
+             "measured_hbm_gbps": 3350.0}
 
 
 
@@ -3694,6 +3709,50 @@ def phase_graphs(torch, wk, tk, fk, cfg_eval, tmp, card):
     return launches
 
 
+def phase_bench(torch):
+    """Phase 16: the port's bench in a process of its own (see the module
+    docstring)."""
+    import gc
+    from mcmda_tpu_torch import bench
+    from mcmda_tpu_torch.scripts import bench_runs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mcmda_tpu_torch.bench",
+                          *BENCH_ARGS], cwd=ROOT, capture_output=True,
+                         text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"bench exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"bench {' '.join(BENCH_ARGS)}: {json.dumps(line)}", flush=True)
+    print(f"bench phase: {seconds:.1f} s", flush=True)
+    extra = line["extra"]
+    if line["metric"] != bench.METRIC or not line["value"] > 0:
+        fail(f"bench: metric {line['metric']}, value {line['value']}")
+    missing = set(bench.BENCH_PY_KEYS) - set(extra)
+    if missing:
+        fail(f"bench: bench.py's keys {sorted(missing)} missing")
+    bad = [(k, v) for k, v in bench_runs.figures(line).items()
+           if not math.isfinite(v)
+           or not (v >= 0 if k.startswith("step1_rel.") else v > 0)]
+    if bad:
+        fail(f"bench: figures not finite and positive: {bad}")
+    over = [(k, v) for k, v in extra.items() if v is not None
+            and ("_mfu_" in k or "_utilization_" in k) and v > 1.05]
+    if over:
+        fail(f"bench: shares over 1.05: {over}")
+    above = {k: (extra[k], peak) for k, peak in PUBLISHED.items()
+             if not extra[k] < peak}
+    if above:
+        fail(f"bench: measured peaks not under the published ones: {above}")
+    if not all(extra["launches"].values()):
+        fail(f"bench: a kernel not launched: {extra['launches']}")
+    if not extra["card"]:
+        fail("bench: no card name and power limit")
+
+
 def main() -> int:
     try:
         import torch
@@ -3817,6 +3876,9 @@ def main() -> int:
         warp_launches += gr_w
         conv_launches += gr_c
         launches += gr_f
+
+    # 16. the bench, in a process of its own
+    phase_bench(torch)
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",
