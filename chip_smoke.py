@@ -19,7 +19,10 @@ Phases (any failure ends the run non-zero):
    (batch 8, and 16 for flip TTA), f32 and the bf16 inputs the
    ``eval_bf16`` flow gives it; max abs error and median times of both;
    then the f64 control per call-site shape at batch 1 (the kernel's error
-   against an f64 conv at most F64_RATIO times the plain f32 conv's).
+   against an f64 conv at most F64_RATIO times the plain f32 conv's); then
+   the differentiable form (``ConvBnAct``: the wrapper under autograd) at
+   512->512 d4 and 256->256 d2, its four gradients against the plain
+   version's within GRAD_RTOL, one launch per forward (about a second).
 4. predict: ``python -m mcmda_tpu_torch predict`` at full width
    (configs/mri2ct.json, run.use_pallas=true) on a 64-slice 256x256 phantom
    from seeded random weights written in the JAX package's npz layout:
@@ -266,6 +269,10 @@ WARP_ATOL = 1e-5
 # cotangent up to rounding)
 MOMENT_RTOL = 1e-4
 GRAD_RTOL = 1e-4
+# phase 3's differentiable fused conv: the share of outputs that the kernel
+# and the plain forward put on either side of the ReLU (each within
+# RTOL / ATOL of the other, so only outputs within ~1e-4 of 0 may flip)
+FLIP_SHARE = 1e-4
 # phase 6: (name, extra train-source --set overrides, steps, warp launches
 # per step, conv-moments launches per step).  The JAX package sends 15
 # convs of a default-stage train forward to its conv + moments kernel: the
@@ -629,15 +636,72 @@ def phase_kernel(cfg, torch, fk):
         f64_control(torch, x, w, d, lambda a, b, dd: fk.conv_bn_act(
             a, b, torch.ones(k, device="cuda"), torch.zeros(k, device="cuda"),
             dilation=dd, activation="none"), "kernel")
+    grad_rel = phase_kernel_vjp(torch, fk, gen)
     (b_ms, b_by), (f_ms, _) = bounds[BATCH]
     return (len(per_batch[BATCH]),
-            dict(max_abs_err=worst, ms=totals[BATCH][0],
+            dict(max_abs_err=worst, vjp_grad_rel=grad_rel,
+                 ms=totals[BATCH][0],
                  plain_ms=totals[BATCH][1], bound_ms=b_ms, bound_by=b_by,
                  library_ms=totals[BATCH][2], f32_core_bound_ms=f_ms,
                  batch16_ms=totals[2 * BATCH][0],
                  batch16_plain_ms=totals[2 * BATCH][1],
                  batch16_library_ms=totals[2 * BATCH][2],
                  batch16_bound_ms=bounds[2 * BATCH][0][0]))
+
+
+def phase_kernel_vjp(torch, fk, gen):
+    """Phase 3, the differentiable form (``ConvBnAct``): the four gradients
+    of a seeded scalar of the kernel's output against the plain version's
+    under autograd, within GRAD_RTOL of the largest |gradient| (both
+    backwards are cuDNN's transposed convs fed the same cotangent), at two
+    call sites of the full-width forward; each forward launches the kernel
+    once.  The ReLU's derivative jumps at 0, and the two forwards differ
+    within RTOL / ATOL: an output that one puts above 0 and the other not
+    passes its whole cotangent on one side only, so those outputs get none
+    here, and they must be at most FLIP_SHARE of all.  About a second of
+    the run."""
+    worst = 0.0
+    for xs, k, d in (((BATCH, SIZE // 8, SIZE // 8, 512), 512, 4),
+                     ((BATCH, SIZE // 8, SIZE // 8, 256), 256, 2)):
+        c = xs[-1]
+        inputs = (torch.randn(xs, device="cuda", generator=gen),
+                  torch.randn((3, 3, c, k), device="cuda", generator=gen)
+                  * math.sqrt(2.0 / (9 * c)),
+                  torch.rand(k, device="cuda", generator=gen) + 0.5,
+                  torch.randn(k, device="cuda", generator=gen) * 0.1)
+        ct = torch.randn(xs[:3] + (k,), device="cuda", generator=gen)
+        runs = []
+        for name, fn in (("kernel", fk.conv_bn_act),
+                         ("plain", fk.conv_bn_act_reference)):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            before = fk.LAUNCHES
+            y = fn(*leaves, dilation=d, activation="relu")
+            launched = fk.LAUNCHES - before
+            if launched != (name == "kernel") or y.grad_fn is None:
+                fail(f"conv_bn_act under autograd ({name}): {launched} "
+                     f"launches, grad_fn {y.grad_fn}")
+            runs.append((leaves, y))
+        node = type(runs[0][1].grad_fn).__name__
+        if node != "ConvBnActBackward":
+            fail(f"conv_bn_act under autograd took {node}")
+        flip = (runs[0][1] > 0) != (runs[1][1] > 0)
+        share = flip.float().mean().item()
+        ct = ct.masked_fill(flip, 0.0)
+        grads = [torch.autograd.grad((y * ct).sum(), leaves)
+                 for leaves, y in runs]
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(*grads)]
+        worst = max(worst, *rel)
+        print(f"kernel vjp x={list(xs)} k={k} d={d}: "
+              + ", ".join(f"{n} rel {r:.2e}" for n, r in
+                          zip(("dx", "dw", "dscale", "dbias"), rel))
+              + f" (limit {GRAD_RTOL}); {int(flip.sum())} outputs on "
+              f"either side of the ReLU ({share:.2e}, limit {FLIP_SHARE}); "
+              f"{node}", flush=True)
+        if max(rel) > GRAD_RTOL or share > FLIP_SHARE:
+            fail(f"conv_bn_act gradients disagree at x={xs} d={d}: {rel}, "
+                 f"ReLU flips {share}")
+    return worst
 
 
 def _random_trees(cfg, rng, segmenter):
@@ -3334,19 +3398,13 @@ PROBE_TIMED = 5
 NCCL_STEPS = 10
 
 
-@contextlib.contextmanager
 def eager_dispatch():
     """Inside the block ``drivers.dispatch`` says "eager", so every path
     that takes a CUDA graph on the card runs its eager twin instead: what
     the graph is held to here.  The port itself never falls back."""
-    from mcmda_tpu_torch.train import drivers
+    from mcmda_tpu_torch.scripts import sweep_graph_check
 
-    real = drivers.dispatch
-    drivers.dispatch = lambda *a, **k: "eager"
-    try:
-        yield
-    finally:
-        drivers.dispatch = real
+    return sweep_graph_check.eager_dispatch()
 
 
 def _turns(torch, paths, run, warm, timed):

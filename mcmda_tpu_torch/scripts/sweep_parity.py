@@ -8,9 +8,12 @@ For each direction it reads the port's artifact
 ``results/ct2mri_policyval_sweep.json``), and runs an exact two-sided
 permutation test of the difference of means on each gated metric: every
 split of the pooled values into groups of the two sizes, C(10, 5) = 252
-for 5 seeds against 5.  Parity holds when p >= ALPHA for both gated
-metrics (0.05 split over the two).  The other metrics are reported beside
-the reference's, without a gate.
+for mri2ct's 5 seeds against 5, C(20, 5) = 15,504 for ct2mri's 5 against
+15.  Parity holds when p >= ALPHA for both gated metrics (0.05 split over
+the two).  The other metrics are reported beside the reference's, without
+a gate, each over the rows that have it: ``gap.tta_sel`` is flip TTA at
+the cr_ent pick (what ``run.eval_tta: flip`` ships), and ct2mri's
+reference rows of seeds 0-2 have no ``selected_cfg``.
 
 Usage (from the root of a checkout; numpy and json only)::
 
@@ -40,7 +43,8 @@ GATED = ("selected_cr_ent", "oracle")
 ALPHA = 0.025
 # reported beside the reference's, no gate
 REPORTED = ("final", "selected", "selected_cr", "selected_dual", "tta_live",
-            "ema0.9", "ema0.95", "ema0.9g0.25", "ema0.95g0.25")
+            "gap.tta_sel", "selected_cfg", "ema0.9", "ema0.95", "ema0.9g0.25",
+            "ema0.95g0.25")
 
 
 def permutation_p(a, b) -> float:
@@ -63,11 +67,24 @@ def _load(rel):
         return json.load(f)
 
 
-def per_seed(rows, key) -> list:
-    """One value per seed: ``tta_live`` is the live state's flip-TTA Dice."""
+def _value(row, key):
+    """``key``'s value in one row, None where the row lacks it:
+    ``tta_live`` is the live state's flip-TTA Dice, ``gap.<k>`` the row's
+    ``gap[k]``."""
     if key == "tta_live":
-        return [r["tta"]["live"] for r in rows]
-    return [r[key] for r in rows]
+        return row.get("tta", {}).get("live")
+    if key.startswith("gap."):
+        return row.get("gap", {}).get(key[len("gap."):])
+    return row.get(key)
+
+
+def per_seed(rows, key) -> list:
+    """One value per seed whose row has ``key``; a gated key must be in
+    every row."""
+    values = [_value(r, key) for r in rows]
+    if key in GATED and None in values:
+        raise KeyError(f"{key} is missing from a row")
+    return [v for v in values if v is not None]
 
 
 def reference_rows(direction) -> list:
@@ -87,6 +104,8 @@ def port_artifact(direction) -> dict:
 
 def _stats(v) -> dict:
     v = np.asarray(v, np.float64)
+    if not v.size:
+        return {"n": 0, "mean": None, "std": None}
     return {"n": int(v.size), "mean": round(float(v.mean()), 4),
             "std": round(float(v.std(ddof=1)), 4) if v.size > 1 else None}
 

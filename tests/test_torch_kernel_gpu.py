@@ -12,7 +12,8 @@ against an f64 conv is held to 4x the plain f32 conv's); the warp's image
 channels bitwise (``torch.equal``: its sampling coordinates and its blend
 round as the plain version's tensor operations do) and its renormalised
 label channels atol 1e-5 (the label sum's order may differ); the thin
-stem's gradients within 1e-4 of the largest.  The CUDA graphs (train
+stem's and the differentiable fused conv's gradients within 1e-4 of the
+largest.  The CUDA graphs (train
 steps, the fed host-sampler step, the one-graph volume, the probe) are
 held bitwise (``torch.equal``, ``np.array_equal``) to their eager runs:
 the same kernels in the same order.
@@ -137,6 +138,41 @@ def test_split_tf32_f64_control(cuda_device, n, hw, c, k, dilation):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dilation,activation", [(1, "relu"),
+                                                 (2, "leaky_relu"),
+                                                 (4, "none")])
+def test_vjp_through_the_kernel_matches_plain(cuda_device, dilation,
+                                              activation):
+    """The wrapper under autograd is ``ConvBnAct``: one kernel launch per
+    forward, and its four gradients within 1e-4 of the largest of the
+    plain version's under autograd; under inference mode no graph."""
+    arrays = _inputs(16, 2, 16, 16, 32, 64, cuda_device)
+    ct = arrays.pop()
+    runs = []
+    for fn, launches in ((fk.conv_bn_act, 1),
+                         (fk.conv_bn_act_reference, 0)):
+        leaves = [a.clone().requires_grad_() for a in arrays]
+        before = fk.LAUNCHES
+        y = fn(*leaves, dilation=dilation, activation=activation)
+        assert fk.LAUNCHES - before == launches
+        runs.append((leaves, y))
+    # an output the two forwards put on either side of 0, where the
+    # activation's derivative jumps, gets no cotangent (few may: the
+    # forwards agree within 1e-4)
+    flip = (runs[0][1] > 0) != (runs[1][1] > 0)
+    assert flip.float().mean().item() <= 1e-4
+    ct = ct.masked_fill(flip, 0.0)
+    grads = [torch.autograd.grad((y * ct).sum(), leaves)
+             for leaves, y in runs]
+    for a, b in zip(*grads):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-4
+    leaves = [a.clone().requires_grad_() for a in arrays]
+    with torch.inference_mode():
+        y = fk.conv_bn_act(*leaves, dilation=dilation, activation=activation)
+    assert y.grad_fn is None
+
+
+@pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     x, w, s, b, r = _inputs(1, 1, 8, 8, 4, 8, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
@@ -147,6 +183,8 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         fk.conv_bn_act(x, w.cpu(), s, b)
     with pytest.raises(ValueError, match="shape"):
         fk.conv_bn_act(x, w, s, b, residual=r[..., :4])
+    with pytest.raises(ValueError, match="no residual"):
+        fk.conv_bn_act(x, w.requires_grad_(), s, b, residual=r)
 
 
 @pytest.mark.cuda
