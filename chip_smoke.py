@@ -85,7 +85,7 @@ Phases (any failure ends the run non-zero):
    and ``profiling.measure_step`` of the host-sampler steps with both
    feeds.
 11. quality: the seed-sweep twin (``mcmda_tpu_torch/scripts/seed_sweep.py``)
-   at full width on 2 volumes of 16 slices, 20 source and 2 x 40 adapt
+   at full width on 2 volumes of 16 slices, 10 source and 2 x 20 adapt
    steps, a probe every 10 (artifact keys against the reference's
    ``results/mri2ct_seed_sweep_r5.json``, a ``--first-seed 1 --merge``
    rerun bitwise equal); the synthetic-benchmark twin for mri2ct at 10 + 10
@@ -101,7 +101,9 @@ Phases (any failure ends the run non-zero):
    BN state; the ranks' states bitwise equal) and beside the one process
    on the batch reordered (how far summation order alone moves it); the
    ranks' step times, gloo through the host.  (b) ``train-source`` and
-   ``adapt --multihost --gloo`` through the CLI on two ranks: rank 0
+   ``adapt --multihost --gloo`` through the CLI on two ranks (the same
+   two processes as (a), after its steps, each command a world of its
+   own): rank 0
    writes the checkpoints, metrics, snapshots and ``selection.json``, rank
    1 (a run directory of its own) nothing, both print the same metrics.
    (c) a one-rank NCCL world: its T1 step bitwise the step without a
@@ -129,21 +131,21 @@ Phases (any failure ends the run non-zero):
 14. scan: the compiled multi-step dispatch, CUDA graphs of the
    device-resident steps (``loop.scanned_step``; the CLI / API runs of
    phases 6-13 take it too, at their own ``pick_inner``).  (d)
-   ``train-source`` through the CLI at 25 steps per call (log steps by the
+   ``train-source`` through the CLI at 10 steps per call (log steps by the
    JAX package's rule), the source of (b); (a) T1 (configs/mri2ct.json,
    kernel path) and (b) adapt (mri2ct at rm3; ct2mri at rm2 from a critic
    trained ahead, so that its 0.9 throttle holds steps; ct2mri with
-   ``adapt.dam_ema=0.5``): 50 steps on the graph against 50 eager steps
-   with the same seeds, every state tensor and the last metrics
+   ``adapt.dam_ema=0.5``): SCAN_INNER steps on the graph against as many
+   eager steps with the same seeds, every state tensor and the last metrics
    ``torch.equal``, the graph's replays counted on the device; each
    capture under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
-   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of 3
-   calls of 50 steps after a warm-up call), ``measure_step`` (device busy
+   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of
+   SCAN_TIMED calls of SCAN_INNER steps after a warm-up call), ``measure_step`` (device busy
    time, idle share, host launch calls per step), capture time and graph
    pool; (d) ``adapt`` through the CLI on the graph (log and probe steps,
    selection.json, the pick) and a train-source run stopped by SIGTERM
-   (sent to this process once its step-50 checkpoint exists) and resumed,
+   (sent to this process once its first checkpoint exists) and resumed,
    bitwise the uninterrupted run; (f) a one-rank NCCL group's step
    captured against its eager path.
 15. graphs: the last eager dispatch on CUDA graphs, at full width
@@ -174,6 +176,13 @@ Phases (any failure ends the run non-zero):
    published ones (PUBLISHED) and the kernels launched on its timed paths
    (the bench's own count: its launches do not enter the kernels line);
    prints the line and the phase's seconds.
+
+Time: every phase prints its seconds on a line of its own (``phase <n>
+<name>: <s> s``), and the end prints all of them with the total and the
+seconds spent inside a few helpers across phases 3-15 (CLI runs, traced
+runs, ``measure_step``, checkpoint writes, phantoms; ``HelperSeconds``).
+Each set of phantoms (``synthetic.make_dataset``) is generated once and
+handed to every later caller as a copy (``cache_phantoms``).
 
 Launch counts: each kernel's wrapper counts its launches on the host, a
 launch that runs at once and one that a CUDA graph capture records alike;
@@ -252,6 +261,14 @@ RUNS = (
 )
 EXACT_SLACK = 0.001
 TIMED_RUNS = 20
+# make_train_step / make_adapt_step and the host-sampler steps: median ms of
+# STEP_TIMED steps after 5 warm-up steps
+STEP_TIMED = 5
+# measure_step reads PROFILE_STEPS calls of each timed path (a step, a
+# volume or a tick): an eager step holds some 4,500 kernels and tens of
+# thousands of host op events, and reading a trace back takes seconds a
+# step
+PROFILE_STEPS = 1
 # distinct input / output buffers a small kernel's cold timing rotates over
 # (each set is 34-50 MB at the warp's and the stem's shapes; the L2 is 50)
 COLD_SETS = 6
@@ -357,7 +374,7 @@ F64_RATIO = 4.0
 # of critic patch decisions, is held to DP_DACC_RTOL, and the shipped bf16
 # source forward rounds at other places when the batch is split.
 DP_RANKS = 2
-DP_TIMED = 3
+DP_TIMED = 2
 DP_CAPS = (1.0, 0.5)
 DP_SETS = ["segmenter.train_fused=pallas", F32_SRC]
 # the reference's own tolerances (tests/test_parallel.py): segmenter and
@@ -382,11 +399,57 @@ DP_TIMEOUT = 300
 DP_CLI_STEPS = 4
 # phase 16: the bench at a shortened run length (its defaults are 5 calls
 # of 50 steps), against the published peaks of one H100 SXM
-BENCH_ARGS = ["--calls", "3", "--steps", "10"]
+BENCH_ARGS = ["--calls", "2", "--steps", "5"]
 BENCH_TIMEOUT = 600
 PUBLISHED = {"measured_peak_tflops": 989.0, "measured_peak_tflops_f32": 67.0,
              "measured_hbm_gbps": 3350.0}
 
+
+
+class HelperSeconds:
+    """Seconds spent inside a few helpers that every phase calls (each
+    call's own time, nested calls included), printed at the end beside
+    the phases' seconds: where the smoke's time goes across phases."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, owner, attr, label):
+        fn = getattr(owner, attr)
+        tally = self.seconds.setdefault(label, [0, 0.0])
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tally[0] += 1
+                tally[1] += time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+
+    def text(self) -> str:
+        return "; ".join(f"{label} {n} calls {s:.1f} s"
+                         for label, (n, s) in self.seconds.items())
+
+
+def cache_phantoms(synthetic) -> None:
+    """Generate each set of phantoms once in this process:
+    ``synthetic.make_dataset`` is deterministic in its arguments, and every
+    ``--synthetic`` CLI run, API run and step timing here asks for the same
+    few sets anew (6-7 s a CLI run on the card's host for both domains at
+    4 volumes of 64 x 256 x 256).  Each call gets copies of the arrays the
+    first call with its arguments generated."""
+    make, made = synthetic.make_dataset, {}
+
+    def cached(seed, domain, num_volumes, depth=24, size=64):
+        key = (seed, domain, num_volumes, depth, size)
+        if key not in made:
+            made[key] = make(*key)
+        vols, labs = made[key]
+        return [v.copy() for v in vols], [lab.copy() for lab in labs]
+
+    synthetic.make_dataset = cached
 
 
 def fail(msg: str) -> None:
@@ -1243,7 +1306,7 @@ def print_profile(label: str, m: dict) -> None:
 
 
 def time_train_step(torch):
-    """Median ms/step of make_train_step over TIMED_RUNS steps after 5
+    """Median ms/step of make_train_step over STEP_TIMED steps after 5
     warm-up steps, on the kernel path and the plain path (same data)."""
     from mcmda_tpu_torch import config as config_mod
     from mcmda_tpu_torch.data import pipeline, synthetic, volumes
@@ -1263,7 +1326,7 @@ def time_train_step(torch):
         step = source.make_train_step(cfg, sample_from_device=True)
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for i in range(5 + TIMED_RUNS):
+        for i in range(5 + STEP_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, data, i)
@@ -1273,11 +1336,12 @@ def time_train_step(torch):
             fail(f"timed {name} step: loss {metrics['loss']}")
         out[name] = statistics.median(times[5:])
         print(f"train step {name}: {out[name]:.2f} ms/step (median of "
-              f"{TIMED_RUNS} after 5 warm-up; peak memory "
+              f"{STEP_TIMED} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
         print_profile(f"train step {name}",
-                      profiling.measure_step(step, state, data))
+                      profiling.measure_step(step, state, data,
+                                             n=PROFILE_STEPS))
         del state
     return out
 
@@ -1555,7 +1619,7 @@ def adapt_setup(source_dir, config=CONFIG, domains=("mri", "ct")):
 
 def time_adapt_step(torch, source_dir, config=CONFIG, paths=ADAPT_PATHS,
                     label="adapt step", setup=None):
-    """Median ms/step of make_adapt_step over TIMED_RUNS steps after 5
+    """Median ms/step of make_adapt_step over STEP_TIMED steps after 5
     warm-up steps, on each of ``paths`` (the kernel path and the plain
     path by default; same data and source checkpoint: ``setup``, else
     ``adapt_setup``'s mri2ct one), and ``profiling.measure_step`` of each;
@@ -1573,7 +1637,7 @@ def time_adapt_step(torch, source_dir, config=CONFIG, paths=ADAPT_PATHS,
         step = adapt.make_adapt_step(cfg, sample_from_device=True)
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for i in range(5 + TIMED_RUNS):
+        for i in range(5 + STEP_TIMED):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, data, i)
@@ -1583,10 +1647,11 @@ def time_adapt_step(torch, source_dir, config=CONFIG, paths=ADAPT_PATHS,
             fail(f"timed adapt {name} step: {metrics}")
         out[name] = statistics.median(times[5:])
         print(f"{label} {name}: {out[name]:.2f} ms/step (median of "
-              f"{TIMED_RUNS} after 5 warm-up; peak memory "
+              f"{STEP_TIMED} after 5 warm-up; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
               flush=True)
-        out[name + " profile"] = profiling.measure_step(step, state, data)
+        out[name + " profile"] = profiling.measure_step(
+            step, state, data, n=PROFILE_STEPS)
         print_profile(f"{label} {name}", out[name + " profile"])
         del state
     return out
@@ -1716,21 +1781,37 @@ def traced_launches(torch, kernels, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     host = tuple(k.LAUNCHES for k in kernels)
-    events = prof.profiler.kineto_results.events()
-    graph_calls = {e.correlation_id() for e in events
-                   if e.device_type() == DeviceType.CPU
-                   and "GraphLaunch" in e.name()}
-    ran, replayed = [0] * len(kernels), [0] * len(kernels)
+    ran, replayed = _count_kernels(prof.profiler.kineto_results.events(),
+                                   pats, DeviceType)
+    return out, wall, host, ran, replayed
+
+
+def _count_kernels(events, pats, device_type):
+    """(executions, graph-replayed executions) per pattern of ``pats``
+    among a trace's device events: a device event counts for the first
+    pattern its name matches, as replayed where its correlation id is that
+    of a host call named ``*GraphLaunch*``.  One pass over the events and
+    one match per distinct kernel name (a 25-step trace holds some 10^5
+    events of a few dozen names)."""
+    graph_calls, device = set(), []
     for e in events:
-        if e.device_type() != DeviceType.CUDA:
-            continue
+        kind = e.device_type()
+        if kind == device_type.CUDA:
+            device.append(e)
+        elif kind == device_type.CPU and "GraphLaunch" in e.name():
+            graph_calls.add(e.correlation_id())
+    ran, replayed = [0] * len(pats), [0] * len(pats)
+    which = {}
+    for e in device:
         name = e.name()
-        for i, pat in enumerate(pats):
-            if pat.search(name):
-                ran[i] += 1
-                replayed[i] += e.correlation_id() in graph_calls
-                break
-    return out, wall, host, tuple(ran), tuple(replayed)
+        if name not in which:
+            which[name] = next((i for i, pat in enumerate(pats)
+                                if pat.search(name)), None)
+        i = which[name]
+        if i is not None:
+            ran[i] += 1
+            replayed[i] += e.correlation_id() in graph_calls
+    return tuple(ran), tuple(replayed)
 
 
 def on_graph(per_step, graphs=1):
@@ -2026,11 +2107,11 @@ def phase_api(torch, wk, tk, fk, tmp, n_sites):
 
 
 def time_host_steps(torch, cfg, src, sv, sl, tgt_train):
-    """ms/step (median of TIMED_RUNS after 5 warm-up, host clock around
+    """ms/step (median of STEP_TIMED after 5 warm-up, host clock around
     ``next(feed)`` + step + synchronise) of the host-sampler T1 and adapt
     steps with the prefetching feed and with the synchronous feed, in the
     order prefetch, synchronous, synchronous, prefetch; then
-    ``measure_step`` of each feed."""
+    ``measure_step`` of each feed's first pass."""
     from mcmda_tpu_torch.data import pipeline, volumes
     from mcmda_tpu_torch.train import adapt, drivers, source
     from mcmda_tpu_torch.utils import profiling
@@ -2057,10 +2138,11 @@ def time_host_steps(torch, cfg, src, sv, sl, tgt_train):
                                       device=DEVICE)[0],
              adapt.init_state(cfg.run.seed + 2, cfg, src.params,
                               src.bn_state), adapt_stream)):
+        profiled = set()
         for name in ("prefetch", "synchronous", "synchronous", "prefetch"):
             feed = feeds[name](stream())
             st, times = state, []
-            for i in range(5 + TIMED_RUNS):
+            for i in range(5 + STEP_TIMED):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 st, metrics = step(st, next(feed), i)
@@ -2070,16 +2152,19 @@ def time_host_steps(torch, cfg, src, sv, sl, tgt_train):
                 fail(f"timed host-sampler {label} step: {metrics}")
             print(f"host-sampler {label} step, {name} feed: "
                   f"{statistics.median(times[5:]):.2f} ms/step (median of "
-                  f"{TIMED_RUNS} after 5 warm-up)", flush=True)
-            print_profile(f"host-sampler {label} step, {name} feed",
-                          profiling.measure_step(step, st, feed))
+                  f"{STEP_TIMED} after 5 warm-up)", flush=True)
+            if name not in profiled:  # each feed's first pass
+                profiled.add(name)
+                print_profile(f"host-sampler {label} step, {name} feed",
+                              profiling.measure_step(step, st, feed,
+                                                     n=PROFILE_STEPS))
 
 
 # phase 11: the quality scripts at toy lengths, at full width.  The sweep
 # runs 2 seeds of QUALITY_ADAPT adapt steps from one QUALITY_SOURCE-step
 # source run, a probe every 10 steps, on 2 volumes of 16 slices; the
 # benchmark one direction through the CLI; the e2e example its plain paths.
-QUALITY_SOURCE, QUALITY_ADAPT, QUALITY_SEEDS = 20, 40, 2
+QUALITY_SOURCE, QUALITY_ADAPT, QUALITY_SEEDS = 10, 20, 2
 SWEEP_ARGS = ["--direction", "mri2ct", "--config", CONFIG, "--set",
               "segmenter.train_fused=pallas", "--volumes", "2", "--depth",
               "16", "--source-steps", str(QUALITY_SOURCE), "--adapt-steps",
@@ -2319,24 +2404,40 @@ def _dp_rank(rank, out_dir, port):
     dist.destroy_process_group()
 
 
-def _cli_rank(rank, argvs, port, out_dir):
+def _dp_ranks(rank, out_dir, port, commands):
+    """Phase 12 (a), then (b), in one spawned process per rank."""
+    _dp_rank(rank, out_dir, port)
+    _cli_rank(rank, commands, out_dir)
+
+
+def _cli_rank(rank, commands, out_dir):
     """Phase 12 (b), one rank of the CLI with --multihost over gloo (a
-    spawned process): writes its exit code, standard output and kernel
-    launches."""
+    spawned process): runs the commands ``(name, argv per rank, port)`` in
+    turn, each in a world of its own (the next one's process group forms
+    once every rank has finished the last), and writes each one's exit
+    code, standard output, kernel launches and seconds; stops after a
+    command that fails."""
     sys.path.insert(0, ROOT)
     import contextlib
     import io
     from mcmda_tpu_torch import cli
     from mcmda_tpu_torch.kernels import train_conv as tk, warp as wk
 
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        rc = cli.main([*argvs[rank], "--multihost", "--coordinator",
-                       f"127.0.0.1:{port}", "--num-processes",
-                       str(DP_RANKS), "--process-id", str(rank), "--gloo"])
-    with open(os.path.join(out_dir, f"cli{rank}.json"), "w") as f:
-        json.dump({"rc": rc, "log": log.getvalue(),
-                   "launches": [wk.LAUNCHES, tk.LAUNCHES]}, f)
+    for name, argvs, port in commands:
+        wk.LAUNCHES = tk.LAUNCHES = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main([*argvs[rank], "--multihost", "--coordinator",
+                           f"127.0.0.1:{port}", "--num-processes",
+                           str(DP_RANKS), "--process-id", str(rank),
+                           "--gloo"])
+        with open(os.path.join(out_dir, f"cli-{name}{rank}.json"), "w") as f:
+            json.dump({"rc": rc, "log": log.getvalue(),
+                       "launches": [wk.LAUNCHES, tk.LAUNCHES],
+                       "seconds": time.perf_counter() - t0}, f)
+        if rc != 0:
+            return
 
 
 def _nccl_pair_rank(rank, out_dir, port):
@@ -2476,10 +2577,31 @@ def phase_dp(torch, wk, tk, tmp):
     out = os.path.join(tmp, "dp")
     os.makedirs(out)
 
+    # (b)'s commands: train-source, then adapt from it, run by (a)'s two
+    # spawned ranks after their steps
+    cmds = ("train-source", "adapt")
+    outs_of = {cmd: [os.path.join(out, f"{cmd}{r}") for r in range(DP_RANKS)]
+               for cmd in cmds}
+    commands = []
+    for cmd in cmds:
+        argvs = []
+        for r in range(DP_RANKS):
+            argv = [cmd, "--config", CONFIG, "--synthetic",
+                    "--synthetic-volumes", "2", "--device", DEVICE,
+                    "--out", outs_of[cmd][r]]
+            if cmd == "adapt":
+                argv += ["--source-ckpt", outs_of["train-source"][0]]
+            for kv in (f"source.steps={DP_CLI_STEPS}",
+                       f"adapt.steps={DP_CLI_STEPS}",
+                       "adapt.pretrain_steps=0", "run.ckpt_every=2",
+                       "run.log_every=1", "segmenter.train_fused=pallas"):
+                argv += ["--set", kv]
+            argvs.append(argv)
+        commands.append((cmd, argvs, _free_port()))
     # (a) two ranks over gloo against one process
     t0 = time.perf_counter()
-    _spawn(_dp_rank, (out, _free_port()), "dp 2-rank steps")
-    wall = time.perf_counter() - t0
+    _spawn(_dp_ranks, (out, _free_port(), commands), "dp ranks")
+    wall = spawned = time.perf_counter() - t0
     ranks = []
     for r in range(DP_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -2581,32 +2703,19 @@ def phase_dp(torch, wk, tk, tmp):
           f"T1 ranks {med['t1']}, adapt ranks {med[str(DP_CAPS[0])]}; one "
           f"process at batch 16: T1 "
           f"{statistics.median(one['ms']['t1'][1:]):.2f}; spawn to exit "
-          f"{wall:.1f} s", flush=True)
+          f"of (a) and (b) {wall:.1f} s", flush=True)
 
-    # (b) the CLI across two processes
-    runs = {}
-    for cmd in ("train-source", "adapt"):
-        outs = [os.path.join(out, f"{cmd}{r}") for r in range(DP_RANKS)]
-        argvs = []
+    # (b) the CLI across the same two processes
+    for cmd in cmds:
+        outs = outs_of[cmd]
+        logs, wall = [], 0.0
         for r in range(DP_RANKS):
-            argv = [cmd, "--config", CONFIG, "--synthetic",
-                    "--synthetic-volumes", "2", "--device", DEVICE,
-                    "--out", outs[r]]
-            if cmd == "adapt":
-                argv += ["--source-ckpt", runs["train-source"][0]]
-            for kv in (f"source.steps={DP_CLI_STEPS}",
-                       f"adapt.steps={DP_CLI_STEPS}",
-                       "adapt.pretrain_steps=0", "run.ckpt_every=2",
-                       "run.log_every=1", "segmenter.train_fused=pallas"):
-                argv += ["--set", kv]
-            argvs.append(argv)
-        t0 = time.perf_counter()
-        _spawn(_cli_rank, (argvs, _free_port(), out), f"dp cli {cmd}")
-        wall = time.perf_counter() - t0
-        logs = []
-        for r in range(DP_RANKS):
-            with open(os.path.join(out, f"cli{r}.json")) as f:
+            path = os.path.join(out, f"cli-{cmd}{r}.json")
+            if not os.path.exists(path):
+                fail(f"dp cli {cmd} rank {r}: did not run")
+            with open(path) as f:
                 rec = json.load(f)
+            wall = max(wall, rec["seconds"])
             if rec["rc"] != 0:
                 fail(f"dp cli {cmd} rank {r}: exit {rec['rc']}")
             if rec["launches"] != [DP_CLI_STEPS, 15 * DP_CLI_STEPS]:
@@ -2634,9 +2743,10 @@ def phase_dp(torch, wk, tk, tmp):
         if not want <= set(names) or len(sigs) != len(set(sigs)):
             fail(f"dp cli {cmd}: rank 0 wrote {names}, {len(sigs)} metric "
                  f"lines, {len(set(sigs))} distinct")
-        runs[cmd] = outs
         print(f"dp (b) {cmd} --multihost, 2 ranks on cuda:0 over gloo, "
-              f"{DP_CLI_STEPS} steps: wall {wall:.1f} s; launches per rank "
+              f"{DP_CLI_STEPS} steps: wall {wall:.1f} s in the ranks ((a) "
+              f"and (b) in one spawn: {spawned:.1f} s spawn to exit); "
+              "launches per rank "
               f"warp {DP_CLI_STEPS}, conv_stats {15 * DP_CLI_STEPS}; rank 0 "
               f"wrote {names}; rank 1 wrote nothing; both ranks: last "
               f"logged {logs[0]}", flush=True)
@@ -3002,23 +3112,34 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
 
 
 # phase 14: the compiled multi-step dispatch.  SCAN_INNER train steps per
-# call, what drivers.pick_inner gives for both shipped configs; a timed
+# call (drivers.pick_inner gives 50 for both shipped configs; 10 keeps a
+# multi-step graph at a fifth of the eager twin's and the trace's cost),
+# SCAN_THROTTLE_INNER for the throttle case, whose critic, trained ahead,
+# must be held back within the call (it held 7 of 25 steps on an H100); a
+# timed
 # path is the median of SCAN_TIMED calls after a warm-up call (the call
 # that held it against the other path), and
 # measure_step reads calls of SCAN_PROFILE steps of each path (a 50-step
 # eager call under the profiler would hold some 175,000 kernel events).
-SCAN_INNER = 50
-SCAN_TIMED = 3
-SCAN_PROFILE = 5
+SCAN_INNER = 10
+SCAN_THROTTLE_INNER = 25
+SCAN_TIMED = 2
+SCAN_PROFILE = 2
 SCAN_NCCL = 10
-# (d) the CLI on the graph: 100 T1 steps, then 50 critic pretrain + 100
-# adapt steps; log every 25, checkpoint every 50, probe every 25, so
-# pick_inner gives 25 steps per call for both
-SCAN_CLI_SETS = ["segmenter.train_fused=pallas", "source.steps=100",
-                 "adapt.pretrain_steps=50", "adapt.steps=100",
-                 "run.log_every=25", "run.ckpt_every=50",
-                 "adapt.select_every=25"]
-SCAN_CLI_INNER = 25
+# (d) the CLI on the graph: SCAN_CLI_SOURCE T1 steps, then
+# SCAN_CLI_PRETRAIN critic pretrain + SCAN_CLI_ADAPT adapt steps; log,
+# checkpoint and probe every SCAN_CLI_INNER, so pick_inner gives
+# SCAN_CLI_INNER steps per call for both (the probe cadence is at most a
+# quarter of the adaptation's steps: SCAN_CLI_ADAPT >= 4 * SCAN_CLI_INNER)
+SCAN_CLI_SOURCE, SCAN_CLI_PRETRAIN, SCAN_CLI_ADAPT = 20, 10, 40
+SCAN_CLI_INNER = 10
+SCAN_CLI_SETS = ["segmenter.train_fused=pallas",
+                 f"source.steps={SCAN_CLI_SOURCE}",
+                 f"adapt.pretrain_steps={SCAN_CLI_PRETRAIN}",
+                 f"adapt.steps={SCAN_CLI_ADAPT}",
+                 f"run.log_every={SCAN_CLI_INNER}",
+                 f"run.ckpt_every={SCAN_CLI_INNER}",
+                 f"adapt.select_every={SCAN_CLI_INNER}"]
 # (b) the throttle case starts from a critic trained ahead of the DAM
 # (critic-only steps at lr_d 1e-3 with no cap, SCAN_AHEAD_CALL per call,
 # until its d_acc reaches SCAN_AHEAD_ACC or SCAN_AHEAD_CALLS calls), so
@@ -3122,10 +3243,11 @@ def _scan_time(torch, label, step, state, data, make, cfg, graph: bool):
 
 def phase_scan(torch, wk, tk, tmp):
     """Phase 14: the compiled multi-step dispatch on the card.  (d1)
-    train-source through the CLI on the graph (25 steps per call), which is
+    train-source through the CLI on the graph (10 steps per call), which is
     also the source of (b); (a) T1 and (b) adapt (mri2ct at rm3; ct2mri at
-    rm2 with the throttle holding steps, and with dam_ema=0.5): 50 steps on
-    the graph against 50 eager steps with the same seeds, bitwise; (c) both
+    rm2 with the throttle holding steps, and with dam_ema=0.5): SCAN_INNER
+    steps on the graph against as many eager steps with the same seeds,
+    bitwise; (c) both
     timed eager and on the graph; (d2) adapt through the CLI on the graph
     (log, probe and checkpoint steps, selection), and a train-source run
     stopped by SIGTERM and resumed, bitwise the uninterrupted run; (f) a
@@ -3171,7 +3293,7 @@ def phase_scan(torch, wk, tk, tmp):
     common = ["--config", CONFIG, "--synthetic", "--device", DEVICE]
     cli_sets = [a for kv in SCAN_CLI_SETS for a in ("--set", kv)]
     log = io.StringIO()
-    n_src = 100
+    n_src = SCAN_CLI_SOURCE
     rc, wall, counts = traced_cli(
         "scan (d) train-source", ["train-source", *common, *cli_sets,
                                   "--out", src], n_src, 1, log)
@@ -3179,7 +3301,7 @@ def phase_scan(torch, wk, tk, tmp):
     with open(os.path.join(src, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [r["step"] for r in recs if "loss" in r]
-    want = _jax_rule_steps(n_src, SCAN_CLI_INNER, 25)
+    want = _jax_rule_steps(n_src, SCAN_CLI_INNER, SCAN_CLI_INNER)
     feed = [ln for ln in text.splitlines() if ln.startswith("feed path:")]
     print(f"scan (d) train-source via the CLI: {feed}; wall {wall:.1f} s; "
           f"loss steps {steps} (the JAX rule: {want}); val_dice steps "
@@ -3233,9 +3355,11 @@ def phase_scan(torch, wk, tk, tmp):
         if ahead:
             pre_cfg = config_mod.load_config(
                 path, ["segmenter.train_fused=pallas", *SCAN_CRITIC_AHEAD])
+            # on a graph (bitwise its eager twin, (b) below): the same
+            # d_acc in a third of the time
             pre = loop.scanned_step(adapt.make_adapt_step(
                 pre_cfg, train_g=False, sample_from_device=True),
-                SCAN_AHEAD_CALL)
+                SCAN_AHEAD_CALL, graph=True, donate=False)
             accs = []
             for i in range(SCAN_AHEAD_CALLS):
                 a0, pm = pre(a0, adata, 99 + i)
@@ -3246,13 +3370,14 @@ def phase_scan(torch, wk, tk, tmp):
                   f"{SCAN_AHEAD_CALL} critic-only steps per call: d_acc "
                   f"{accs}", flush=True)
         c0 = int(a0.opt_d_state[0].count)
+        inner = SCAN_THROTTLE_INNER if ahead else SCAN_INNER
         graph, eager, state, added = _scan_compare(
             torch, counters, label, adapt.make_adapt_step, acfg, a0, adata,
-            (1, 15))
+            (1, 15), inner=inner)
         count(added)
-        held = SCAN_INNER - (int(state.opt_d_state[0].count) - c0)
+        held = inner - (int(state.opt_d_state[0].count) - c0)
         print(f"scan {label}: the critic throttle (d_acc_cap "
-              f"{acfg.adapt.d_acc_cap}) held {held} of {SCAN_INNER} steps",
+              f"{acfg.adapt.d_acc_cap}) held {held} of {inner} steps",
               flush=True)
         if ahead and held < 1:
             fail(f"scan {label}: the throttle held no step")
@@ -3282,15 +3407,18 @@ def phase_scan(torch, wk, tk, tmp):
 
     # (d2) adapt through the CLI on the graph
     ad = os.path.join(tmp, "scan-adapt")
+    n_ad = SCAN_CLI_PRETRAIN + SCAN_CLI_ADAPT
     # the critic pretrain and the adaptation: a graph each
     rc, wall, counts = traced_cli(
         "scan (d) adapt", ["adapt", *common, *cli_sets, "--source-ckpt", src,
-                           "--out", ad], 150, 2, io.StringIO())
+                           "--out", ad], n_ad, 2, io.StringIO())
     with open(os.path.join(ad, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [r["step"] for r in recs if "d_loss" in r]
-    want = (_jax_rule_steps(50, SCAN_CLI_INNER, 25)
-            + _jax_rule_steps(150, SCAN_CLI_INNER, 25, start=50))
+    want = (_jax_rule_steps(SCAN_CLI_PRETRAIN, SCAN_CLI_INNER,
+                            SCAN_CLI_INNER)
+            + _jax_rule_steps(n_ad, SCAN_CLI_INNER, SCAN_CLI_INNER,
+                              start=SCAN_CLI_PRETRAIN))
     probes = [r["step"] for r in recs if "class_ratio_dist" in r]
     with open(os.path.join(ad, "selection.json")) as f:
         best = json.load(f)["best_step"]
@@ -3298,13 +3426,14 @@ def phase_scan(torch, wk, tk, tmp):
     print(f"scan (d) adapt via the CLI: wall {wall:.1f} s; d_loss steps "
           f"{steps} (the JAX rule: {want}); probe steps {probes}; selected "
           f"step {best}; {counts}; wrote {names}", flush=True)
-    if rc != 0 or steps != want or probes != list(range(75, 151, 25)) or \
+    if rc != 0 or steps != want or probes != list(range(
+            SCAN_CLI_PRETRAIN + SCAN_CLI_INNER, n_ad + 1, SCAN_CLI_INNER)) or \
             f"step_{best:08d}.npz" not in names:
         fail(f"scan (d) adapt: rc {rc}, steps {steps}, probes {probes}, "
              f"best {best}, {names}")
 
-    # (d3) train-source stopped by SIGTERM once its step-50 checkpoint
-    # exists (a watcher thread signals this process; the loop's guard
+    # (d3) train-source stopped by SIGTERM once its first checkpoint
+    # (step SCAN_CLI_INNER) exists (a watcher thread signals this process; the loop's guard
     # catches it), resumed, against (d1)'s uninterrupted run
     cut = os.path.join(tmp, "scan-source-cut")
     argv = ["train-source", *common, *cli_sets, "--out", cut]
@@ -3312,7 +3441,8 @@ def phase_scan(torch, wk, tk, tmp):
 
     def watch():
         while not done.wait(0.01):
-            if os.path.exists(os.path.join(cut, "step_00000050.npz")):
+            if os.path.exists(os.path.join(
+                    cut, f"step_{SCAN_CLI_INNER:08d}.npz")):
                 os.kill(os.getpid(), signal.SIGTERM)
                 return
 
@@ -3387,14 +3517,14 @@ def phase_scan(torch, wk, tk, tmp):
 # warm-up window each.  (b) serves SERVE_TIMED volumes per path, (c) runs
 # PROBE_TIMED ticks per path, in turns after a warm-up; (d) runs the sweep
 # for GRAPH_SWEEP_ADAPT steps; (e) NCCL_STEPS steps.
-HOST_STEPS = 20
-HOST_TIMED = 5
+HOST_STEPS = 10
+HOST_TIMED = 3
 GRAPH_SWEEP_ADAPT = 20
 HOST_SETS = ["segmenter.train_fused=pallas", "run.log_every=1",
              f"source.steps={HOST_STEPS}", f"adapt.pretrain_steps={HOST_STEPS}",
              f"adapt.steps={HOST_STEPS}"]
-SERVE_TIMED = 5
-PROBE_TIMED = 5
+SERVE_TIMED = 3
+PROBE_TIMED = 3
 NCCL_STEPS = 10
 
 
@@ -3547,7 +3677,8 @@ def phase_graphs(torch, wk, tk, fk, cfg_eval, tmp, card):
                 states[m], _ = steps[m](states[m], next(feeds[m]), i)
 
         times = _turns(torch, ("eager", "graph"), window, 1, 2)
-        prof = {m: profiling.measure_step(steps[m], states[m], feeds[m], n=5)
+        prof = {m: profiling.measure_step(steps[m], states[m], feeds[m],
+                                          n=PROFILE_STEPS)
                 for m in steps}
         st = steps["graph"].stats
         med = {m: statistics.median(t) / HOST_TIMED for m, t in times.items()}
@@ -3598,7 +3729,8 @@ def phase_graphs(torch, wk, tk, fk, cfg_eval, tmp, card):
         runner = inference._scanned_argmax(
             fwd, (tuple(vol.shape), device, True), 3, BATCH)
         prof = {sd: profiling.measure_step(
-            lambda st, v, _s, sd=sd: (st, serve(sd)), None, vol, n=3)
+            lambda st, v, _s, sd=sd: (st, serve(sd)), None, vol,
+            n=PROFILE_STEPS)
             for sd in (False, True)}
         walls, cli_masks = {}, {}
         for mode in ("graph", "eager"):
@@ -3653,7 +3785,8 @@ def phase_graphs(torch, wk, tk, fk, cfg_eval, tmp, card):
 
     times = _turns(torch, ("eager", "graph"), tick, 1, PROBE_TIMED)
     prof = {m: profiling.measure_step(
-        lambda st, _d, _s, m=m: (st, bundles[m](st)), g_ad, None, n=3)
+        lambda st, _d, _s, m=m: (st, bundles[m](st)), g_ad, None,
+        n=PROFILE_STEPS)
         for m in bundles}
     same = all(torch.equal(ticks["graph"][k], ticks["eager"][k])
                for k in ("fracs_live", "ent_live"))
@@ -3811,7 +3944,19 @@ def phase_bench(torch):
         fail("bench: no card name and power limit")
 
 
+@contextlib.contextmanager
+def phase_seconds(seconds: dict, n: int, name: str):
+    """Times the block as phase ``n``: prints ``phase <n> <name>: <s> s``
+    on a line of its own and keeps the seconds in ``seconds``."""
+    t0 = time.perf_counter()
+    yield
+    seconds[f"{n} {name}"] = s = round(time.perf_counter() - t0, 1)
+    print(f"phase {n} {name}: {s:.1f} s", flush=True)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    seconds = {}
     try:
         import torch
     except ImportError:
@@ -3821,17 +3966,20 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from mcmda_tpu_torch import config as config_mod
-        from mcmda_tpu_torch.data import pipeline
+        from mcmda_tpu_torch import cli
+        from mcmda_tpu_torch.data import pipeline, synthetic
         from mcmda_tpu_torch.kernels import build
         from mcmda_tpu_torch.kernels import fused_conv as fk
         from mcmda_tpu_torch.kernels import thin_conv as sk
         from mcmda_tpu_torch.kernels import train_conv as tk
         from mcmda_tpu_torch.kernels import warp as wk
+        from mcmda_tpu_torch.utils import checkpoint, profiling
         from mcmda_tpu_torch.utils import device as device_mod
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
 
     # 1. device
+    t_device = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -3845,6 +3993,8 @@ def main() -> int:
           f"{json.dumps(device_mod.settings())}", flush=True)
     if device_mod.settings()["tf32"]:
         fail("TF32 is not pinned off")
+    seconds["1 device"] = s = round(time.perf_counter() - t_device, 1)
+    print(f"phase 1 device: {s:.1f} s", flush=True)
 
     # 2. build
     t0 = time.perf_counter()
@@ -3864,79 +4014,107 @@ def main() -> int:
     spilled = [name for name, _, spill, _ in report if spill]
     if spilled:
         fail(f"kernels spill registers: {spilled}")
+    seconds["2 build"] = s = round(time.perf_counter() - t0, 1)
+    print(f"phase 2 build: {s:.1f} s", flush=True)
 
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
+    helpers = HelperSeconds()
+    helpers.wrap(synthetic, "make_dataset", "phantoms generated")
+    cache_phantoms(synthetic)
+    helpers.wrap(synthetic, "make_dataset", "phantoms asked for")
+    helpers.wrap(cli, "main", "CLI runs")
+    helpers.wrap(checkpoint, "save", "checkpoint writes")
+    helpers.wrap(profiling, "measure_step", "measure_step")
+    helpers.wrap(sys.modules[__name__], "traced_launches",
+                 "traced runs (trace included)")
 
     # 3. kernel vs plain
-    n_sites, fused = phase_kernel(cfg.segmenter, torch, fk)
+    with phase_seconds(seconds, 3, "kernel"):
+        n_sites, fused = phase_kernel(cfg.segmenter, torch, fk)
 
     # 4. full-width predict
-    launches = phase_predict(cfg, torch, fk, n_sites)
+    with phase_seconds(seconds, 4, "predict"):
+        launches = phase_predict(cfg, torch, fk, n_sites)
 
     # 5. train kernels vs plain
-    train_cfg = config_mod.load_config(CONFIG)
-    fields = phase_train_kernels(train_cfg, torch, wk, tk, pipeline)
+    with phase_seconds(seconds, 5, "train kernels"):
+        train_cfg = config_mod.load_config(CONFIG)
+        fields = phase_train_kernels(train_cfg, torch, wk, tk, pipeline)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 6. full-width train-source
-        source_dir = os.path.join(tmp, "source")
-        (warp_launches, conv_launches), step_ms = phase_train(
-            torch, wk, tk, fk, source_dir)
-        print(f"train step ms: kernel path {step_ms['kernel']:.2f}, plain "
-              f"path {step_ms['plain']:.2f}", flush=True)
+        with phase_seconds(seconds, 6, "train-source"):
+            source_dir = os.path.join(tmp, "source")
+            (warp_launches, conv_launches), step_ms = phase_train(
+                torch, wk, tk, fk, source_dir)
+            print(f"train step ms: kernel path {step_ms['kernel']:.2f}, "
+                  f"plain path {step_ms['plain']:.2f}", flush=True)
 
         # 7. the thin stem
-        stem = phase_stem(torch, sk)
+        with phase_seconds(seconds, 7, "thin stem"):
+            stem = phase_stem(torch, sk)
 
         # 8. full-width adapt from phase 6's kernel run
-        (w_n, c_n), adapt_dir, adapt_ms = phase_adapt(
-            torch, wk, tk, tmp, os.path.join(source_dir, "kernel"))
-        warp_launches += w_n
-        conv_launches += c_n
-        print(f"adapt step ms: kernel path {adapt_ms['kernel']:.2f}, plain "
-              f"path {adapt_ms['plain']:.2f}", flush=True)
+        with phase_seconds(seconds, 8, "adapt"):
+            (w_n, c_n), adapt_dir, adapt_ms = phase_adapt(
+                torch, wk, tk, tmp, os.path.join(source_dir, "kernel"))
+            warp_launches += w_n
+            conv_launches += c_n
+            print(f"adapt step ms: kernel path {adapt_ms['kernel']:.2f}, "
+                  f"plain path {adapt_ms['plain']:.2f}", flush=True)
 
         # 9. evaluate the adapted run on the fused path
-        launches += phase_evaluate(torch, fk, tmp, adapt_dir, n_sites)
+        with phase_seconds(seconds, 9, "evaluate"):
+            launches += phase_evaluate(torch, fk, tmp, adapt_dir, n_sites)
 
         # 10. the library API, device-resident and host-sampler feeds
-        api_w, api_c, api_f = phase_api(torch, wk, tk, fk, tmp, n_sites)
-        warp_launches += api_w
-        conv_launches += api_c
-        launches += api_f
+        with phase_seconds(seconds, 10, "api"):
+            api_w, api_c, api_f = phase_api(torch, wk, tk, fk, tmp, n_sites)
+            warp_launches += api_w
+            conv_launches += api_c
+            launches += api_f
 
         # 11. the quality scripts at toy lengths
-        q_w, q_c, q_f = phase_quality(torch, wk, tk, fk, tmp, n_sites)
-        warp_launches += q_w
-        conv_launches += q_c
-        launches += q_f
+        with phase_seconds(seconds, 11, "quality"):
+            q_w, q_c, q_f = phase_quality(torch, wk, tk, fk, tmp, n_sites)
+            warp_launches += q_w
+            conv_launches += q_c
+            launches += q_f
 
         # 12. data parallelism: 2 ranks over gloo, the CLI, NCCL
-        dp_w, dp_c = phase_dp(torch, wk, tk, tmp)
-        warp_launches += dp_w
-        conv_launches += dp_c
+        with phase_seconds(seconds, 12, "dp"):
+            dp_w, dp_c = phase_dp(torch, wk, tk, tmp)
+            warp_launches += dp_w
+            conv_launches += dp_c
 
         # 13. the ct2mri recipe and the plug-depth ablation twin
-        ct_w, ct_c, ct_f = phase_ct2mri(torch, wk, tk, fk, tmp, n_sites,
-                                        adapt_ms)
-        warp_launches += ct_w
-        conv_launches += ct_c
-        launches += ct_f
+        with phase_seconds(seconds, 13, "ct2mri"):
+            ct_w, ct_c, ct_f = phase_ct2mri(torch, wk, tk, fk, tmp, n_sites,
+                                            adapt_ms)
+            warp_launches += ct_w
+            conv_launches += ct_c
+            launches += ct_f
 
         # 14. the compiled multi-step dispatch: CUDA graphs of the steps
-        sc_w, sc_c = phase_scan(torch, wk, tk, tmp)
-        warp_launches += sc_w
-        conv_launches += sc_c
+        with phase_seconds(seconds, 14, "scan"):
+            sc_w, sc_c = phase_scan(torch, wk, tk, tmp)
+            warp_launches += sc_w
+            conv_launches += sc_c
 
         # 15. the last eager dispatch on CUDA graphs
-        gr_w, gr_c, gr_f = phase_graphs(torch, wk, tk, fk, cfg, tmp,
-                                        device_mod.card())
-        warp_launches += gr_w
-        conv_launches += gr_c
-        launches += gr_f
+        with phase_seconds(seconds, 15, "graphs"):
+            gr_w, gr_c, gr_f = phase_graphs(torch, wk, tk, fk, cfg, tmp,
+                                            device_mod.card())
+            warp_launches += gr_w
+            conv_launches += gr_c
+            launches += gr_f
 
     # 16. the bench, in a process of its own
-    phase_bench(torch)
+    with phase_seconds(seconds, 16, "bench"):
+        phase_bench(torch)
+    print(f"phase seconds: {json.dumps(seconds)}; total "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"helper seconds (phases 3-15): {helpers.text()}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -24,11 +24,19 @@ same range (``splits``), and the port's source draws
 (``results/torch_h100/<direction>_source_seed<N>_sweep.json``, one
 ``--set run.seed=N`` each, beside the main sweep's adaptation seed 0)
 with their spread next to the spread over adaptation seeds
-(``source_draws``).
+(``source_draws``); and the reference's ct2mri sweeps from other
+source states (CONTEXT: ``results/ct2mri_nhwc_sweep.json``, the r2
+recipe's ``results/ct2mri_seed_sweep.json``) beside its gated pool, each
+with its no-adapt Dice (``reference_context``).  A 20,000-step retrain of
+the main sweep's source, recorded from its log by ``--record-retrain``
+(``record_retrain``), is printed against the main sweep's digest.
 
 Usage (from the root of a checkout; numpy and json only)::
 
     python -m mcmda_tpu_torch.scripts.sweep_parity
+    # a retrain's log (seed_sweep --seeds 0, after a ``card: <nvidia-smi
+    # name, power limit>`` line) into RETRAIN's artifact
+    python -m mcmda_tpu_torch.scripts.sweep_parity --record-retrain LOG
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import itertools
 import json
 import math
 import os
+import re
 
 import numpy as np
 
@@ -52,6 +61,16 @@ REFERENCE = {
 PORT = "results/torch_h100/{}_seed_sweep.json"
 # the port's sweeps of other source draws (``--set run.seed=N``)
 DRAWS_GLOB = "results/torch_h100/{}_source_seed*_sweep.json"
+# the reference's sweeps of other source states, on recipes that cannot
+# join the gated pool, and the pool itself: (label, files); no gate
+CONTEXT = {"ct2mri": (
+    ("nhwc thin layout", ("results/ct2mri_nhwc_sweep.json",)),
+    ("r2 recipe, superseded", ("results/ct2mri_seed_sweep.json",)),
+    ("the gated pool", REFERENCE["ct2mri"]),
+)}
+# a retrain of the main ct2mri sweep's source state (run.seed 0), from its
+# log (``record_retrain``)
+RETRAIN = "results/torch_h100/{}_source_retrain.json"
 # the checkpoint the recipe ships, and the training dynamics apart from
 # selection; each held at ALPHA = 0.05 / 2
 GATED = ("selected_cr_ent", "oracle")
@@ -120,10 +139,15 @@ def _value(row, key):
 def per_seed(rows, key) -> list:
     """One value per seed whose row has ``key``; a gated key must be in
     every row."""
-    values = [_value(r, key) for r in rows]
-    if key in GATED and None in values:
+    values = per_seed_values(rows, key)
+    if key in GATED and len(values) < len(rows):
         raise KeyError(f"{key} is missing from a row")
-    return [v for v in values if v is not None]
+    return values
+
+
+def per_seed_values(rows, key) -> list:
+    """``key``'s values over the rows that have it (no gate)."""
+    return [v for v in (_value(r, key) for r in rows) if v is not None]
 
 
 def reference_rows(direction) -> list:
@@ -242,6 +266,66 @@ def source_draws(direction) -> list:
     return sorted(rows, key=lambda r: r["run_seed"])
 
 
+def reference_context(direction) -> list:
+    """One row per CONTEXT entry: its files, commits, overrides (None
+    where the artifact has no such key), seeds, no-adapt Dice, and n /
+    mean / sample std of ``oracle`` and of ``selected_cr_ent`` (n 0 where
+    the rows lack it); no gate."""
+    rows = []
+    for label, files in CONTEXT.get(direction, ()):
+        arts = [_load(rel) for rel in files]
+        per_seed = [r for a in arts for r in a["per_seed"]]
+        rows.append({
+            "label": label, "files": list(files),
+            "commits": [a.get("commit") for a in arts],
+            "overrides": [a.get("overrides") for a in arts],
+            "seeds": len(per_seed),
+            "no_adapt": sorted({a["no_adapt"] for a in arts}),
+            "oracle": _stats(per_seed_values(per_seed, "oracle")),
+            "selected_cr_ent": _stats(per_seed_values(per_seed,
+                                                      "selected_cr_ent")),
+        })
+    return rows
+
+
+_LOG_KEYS = (("card", re.compile(r"^card: (.+)$")),
+             ("source_steps", re.compile(r"^\[sweep\] source training "
+                                         r"(\d+) steps")),
+             ("source_seconds", re.compile(r"^\[sweep\] source done in "
+                                           r"(\d+)s")),
+             ("source_digest", re.compile(r"^\[sweep\] source digest "
+                                          r"([0-9a-f]{64})$")),
+             ("no_adapt", re.compile(r"^\[sweep\] no-adapt mean Dice: "
+                                     r"([0-9.]+)$")))
+
+
+def record_retrain(lines, direction="ct2mri") -> dict:
+    """The record of a retrain of the main sweep's source from the lines
+    of its log: the card, steps, seconds, digest and no-adapt Dice it
+    printed, whether the digest is the main sweep's, and the lines read;
+    a key missing from the log raises."""
+    got, kept = {}, []
+    for line in (ln.rstrip("\n") for ln in lines):
+        for key, pattern in _LOG_KEYS:
+            m = pattern.match(line)
+            if m and key not in got:
+                got[key] = m.group(1)
+                kept.append(line)
+    missing = [k for k, _ in _LOG_KEYS if k not in got]
+    if missing:
+        raise ValueError(f"the log lacks {missing}")
+    main_digest = port_artifact(direction)["settings"]["source_digest"]
+    return {"direction": direction, "card": got["card"],
+            "source_steps": int(got["source_steps"]),
+            "source_seconds": int(got["source_seconds"]),
+            "source_digest": got["source_digest"],
+            "no_adapt_printed": float(got["no_adapt"]),
+            "main_sweep": PORT.format(direction),
+            "main_sweep_digest": main_digest,
+            "digest_equal": got["source_digest"] == main_digest,
+            "log": kept}
+
+
 def _spread(v) -> str:
     v = np.asarray(v, np.float64)
     return (f"{v.min():.4f}-{v.max():.4f} (range {v.max() - v.min():.4f}, "
@@ -249,8 +333,19 @@ def _spread(v) -> str:
 
 
 def main(argv=None) -> dict:
-    argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0]).parse_args(argv)
+    parser = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0])
+    parser.add_argument("--record-retrain", metavar="LOG",
+                        help="write RETRAIN's ct2mri artifact from the log "
+                             "of a retrain of the main sweep's source, "
+                             "then compare as usual")
+    args = parser.parse_args(argv)
+    if args.record_retrain:
+        with open(args.record_retrain) as f:
+            rec = record_retrain(f)
+        with open(os.path.join(ROOT, RETRAIN.format("ct2mri")), "w") as f:
+            json.dump(rec, f, indent=1)
+            f.write("\n")
     result = {d: compare(d) for d in REFERENCE
               if os.path.exists(os.path.join(ROOT, PORT.format(d)))}
     print("| Direction | Metric | Port n, mean ± std | Reference n, mean ± "
@@ -299,6 +394,33 @@ def main(argv=None) -> dict:
                 print(f"over {len(seeds)} adaptation seeds of draw "
                       f"{draws[0]['run_seed']}, {key}: "
                       + _spread(per_seed(seeds, key)))
+        context = reference_context(d)
+        result[d]["reference_context"] = context
+        if context:
+            print(f"\n{d}, the reference's sweeps from other source states "
+                  "(no gate; sample stds)\n")
+            print("| Sweep | Files | Commit | Overrides | Seeds | no_adapt | "
+                  "oracle | selected_cr_ent |")
+            print("|---|---|---|---|---|---|---|---|")
+            for r in context:
+                cells = [f"{s['mean']} ± {s['std']}" if s["n"] else "-"
+                         for s in (r["oracle"], r["selected_cr_ent"])]
+                print(f"| {r['label']} | {', '.join(r['files'])} | "
+                      f"{', '.join(str(c) for c in r['commits'])} | "
+                      f"{', '.join(str(o) for o in r['overrides'])} | "
+                      f"{r['seeds']} | "
+                      f"{', '.join(map(str, r['no_adapt']))} | "
+                      f"{cells[0]} | {cells[1]} |")
+        retrain = os.path.join(ROOT, RETRAIN.format(d))
+        if os.path.exists(retrain):
+            rec = _load(RETRAIN.format(d))
+            result[d]["retrain"] = rec
+            print(f"\n{d}: a {rec['source_steps']}-step retrain of the main "
+                  f"sweep's source on {rec['card']} ({rec['source_seconds']} "
+                  f"s): digest {rec['source_digest'][:8]}..., "
+                  + ("equal to" if rec["digest_equal"] else "not")
+                  + f" the main sweep's {rec['main_sweep_digest'][:8]}...; "
+                  f"no-adapt {rec['no_adapt_printed']}")
     return result
 
 

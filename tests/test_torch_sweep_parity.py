@@ -45,7 +45,20 @@ CT2MRI_FIRST_ROWS = ("fe329505291193a4b1b4841fc66c06b6"
                      "4917c7ab6f41ec408f3aa268966d358d")
 # the port's other source draws of ct2mri (``--set run.seed=N``), each a
 # source run and adaptation seed 0
-DRAWS = (1,)
+DRAWS = (1, 2, 3)
+# each draw's (no-adapt Dice, selected_cr_ent, oracle) at adaptation seed
+# 0, run.seed 0 the main sweep's
+DRAW_FIGURES = {0: (0.3164, 0.8058, 0.8243), 1: (0.3099, 0.5599, 0.6025),
+                2: (0.3234, 0.5811, 0.6302), 3: (0.3179, 0.6273, 0.6989)}
+# the decision rule over the four draws (PERF.md, section 6): (a) both of the
+# reference pool's means inside [min, max] of the draws; (b) every draw's
+# no-adapt Dice above RULE_B_LEVEL, the highest of the reference's three
+# source states
+RULE = {"a": True, "b": True}
+RULE_B_LEVEL = 0.2769
+# the digest that a 20,000-step retrain of ct2mri's run.seed 0 printed on
+# an H100: the main sweep's
+RETRAIN_DIGEST = DIGESTS["ct2mri"]
 
 
 def _brute_force_p(a, b):
@@ -296,3 +309,108 @@ def test_ct2mri_splits_apart(ct2mri_splits, a, b, metric, p):
 
 def test_splits_need_a_pooled_reference():
     assert sp.splits("mri2ct") == []
+
+
+@pytest.mark.parametrize("run_seed", sorted(DRAW_FIGURES))
+def test_source_draw_figures_are_pinned(run_seed):
+    """Each source draw's no-adapt Dice and adaptation seed 0's
+    selected_cr_ent and oracle (to 4 places), so that the table the rule
+    reads cannot drift."""
+    row = {r["run_seed"]: r for r in sp.source_draws("ct2mri")}[run_seed]
+    assert (row["no_adapt"], row["selected_cr_ent"], row["oracle"]) == \
+        DRAW_FIGURES[run_seed]
+
+
+def test_source_draw_decision_rule():
+    """The rule fixed before draws 2-3 ran, on the four draws: (a) the
+    reference pool's selected_cr_ent and oracle means both inside the
+    draws' [min, max]; (b) every draw's no-adapt Dice above the highest of
+    the reference's source states (its context table's no-adapt)."""
+    rows = sp.source_draws("ct2mri")
+    assert [r["run_seed"] for r in rows] == [0, 1, 2, 3]
+    pool = sp.reference_rows("ct2mri")
+    inside = []
+    for key in sp.GATED:
+        mean = float(np.mean(sp.per_seed(pool, key)))
+        v = [r[key] for r in rows]
+        inside.append(min(v) <= mean <= max(v))
+    levels = [n for r in sp.reference_context("ct2mri")
+              for n in r["no_adapt"]]
+    assert max(levels) == RULE_B_LEVEL
+    assert {"a": all(inside),
+            "b": all(r["no_adapt"] > RULE_B_LEVEL for r in rows)} == RULE
+
+
+@pytest.mark.parametrize("label, no_adapt, seeds, oracle, cr_ent", [
+    ("nhwc thin layout", [0.2218], 3, (0.7569, 0.0898), None),
+    ("r2 recipe, superseded", [0.2769], 5, (0.8276, 0.0275), None),
+    ("the gated pool", [0.2066], 15, (0.7113, 0.0588), (0.6564, 0.0947)),
+])
+def test_reference_context_rows(label, no_adapt, seeds, oracle, cr_ent):
+    """The reference's ct2mri sweeps from other source states beside its
+    gated pool: no-adapt Dice, seeds and oracle (sample std) of each;
+    selected_cr_ent only where the rows have it (the r5 script's)."""
+    row = {r["label"]: r for r in sp.reference_context("ct2mri")}[label]
+    assert row["no_adapt"] == no_adapt
+    assert row["seeds"] == seeds
+    assert (row["oracle"]["mean"], row["oracle"]["std"]) == oracle
+    st = row["selected_cr_ent"]
+    assert ((st["mean"], st["std"]) if st["n"] else None) == cr_ent
+    if label == "the gated pool":
+        assert row["files"] == list(sp.REFERENCE["ct2mri"])
+        assert row["commits"] == ["0199708", "ff31301"]
+
+
+def test_reference_context_is_ct2mri_only():
+    assert sp.reference_context("mri2ct") == []
+    assert [r["label"] for r in sp.reference_context("ct2mri")] == \
+        [label for label, _ in sp.CONTEXT["ct2mri"]]
+
+
+def test_retrain_artifact_pins_its_finding():
+    """A 20,000-step source run at ct2mri's run.seed 0 on an H100: its
+    digest, whether it is the main sweep's, and a record that its own log
+    lines give again."""
+    rec = sp._load(sp.RETRAIN.format("ct2mri"))
+    assert rec["source_steps"] == LENGTHS["ct2mri"][0]
+    assert "H100" in rec["card"]
+    assert rec["source_digest"] == RETRAIN_DIGEST
+    assert rec["main_sweep_digest"] == DIGESTS["ct2mri"]
+    assert rec["digest_equal"] == (RETRAIN_DIGEST == DIGESTS["ct2mri"])
+    assert sp.record_retrain(rec["log"]) == rec
+
+
+def test_record_retrain_reads_a_log_and_refuses_one_without_a_digest():
+    lines = ["card: NVIDIA H100 80GB HBM3, 700.00 W",
+             "[sweep] source training 20000 steps...",
+             "[sweep] source done in 1181s",
+             "[sweep] source digest " + "ab" * 32,
+             "[sweep] no-adapt mean Dice: 0.316",
+             "[sweep] source digest " + "cd" * 32]
+    rec = sp.record_retrain(lines)
+    assert (rec["source_steps"], rec["source_seconds"],
+            rec["source_digest"], rec["no_adapt_printed"]) == \
+        (20000, 1181, "ab" * 32, 0.316)
+    assert rec["digest_equal"] is False
+    assert rec["log"] == lines[:5]
+    with pytest.raises(ValueError, match="source_digest"):
+        sp.record_retrain(lines[:3])
+
+
+def test_main_prints_the_draws_the_context_and_the_retrain(monkeypatch,
+                                                           capsys):
+    """``main`` prints the source-draw table over run.seed 0-3, then the
+    reference's context table and the retrain's line (the permutation
+    test stubbed: its figures are pinned above)."""
+    monkeypatch.setattr(sp, "permutation_p", lambda a, b, **kw: 0.5)
+    result = sp.main([])
+    out = capsys.readouterr().out
+    draws = out.index("the port's source draws at adaptation seed 0")
+    context = out.index("the reference's sweeps from other source states")
+    retrain = out.index("-step retrain of the main sweep's source")
+    assert draws < context < retrain
+    for label, _ in sp.CONTEXT["ct2mri"]:
+        assert f"| {label} |" in out[context:retrain]
+    assert [r["run_seed"] for r in result["ct2mri"]["source_draws"]] == \
+        [0, 1, 2, 3]
+    assert result["mri2ct"]["reference_context"] == []
