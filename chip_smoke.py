@@ -101,9 +101,9 @@ Phases (any failure ends the run non-zero):
    BN state; the ranks' states bitwise equal) and beside the one process
    on the batch reordered (how far summation order alone moves it); the
    ranks' step times, gloo through the host.  (b) ``train-source`` and
-   ``adapt --multihost --gloo`` through the CLI on two ranks (the same
-   two processes as (a), after its steps, each command a world of its
-   own): rank 0
+   ``adapt --multihost --gloo`` through the CLI on two freshly spawned
+   ranks (both commands in turn in the same two processes, each command a
+   world of its own): rank 0
    writes the checkpoints, metrics, snapshots and ``selection.json``, rank
    1 (a run directory of its own) nothing, both print the same metrics.
    (c) a one-rank NCCL world: its T1 step bitwise the step without a
@@ -135,16 +135,17 @@ Phases (any failure ends the run non-zero):
    JAX package's rule), the source of (b); (a) T1 (configs/mri2ct.json,
    kernel path) and (b) adapt (mri2ct at rm3; ct2mri at rm2 from a critic
    trained ahead, so that its 0.9 throttle holds steps; ct2mri with
-   ``adapt.dam_ema=0.5``): SCAN_INNER steps on the graph against as many
+   ``adapt.dam_ema=0.5``): pick_inner's 50 steps for T1 and SCAN_INNER
+   for adapt (25 for the throttle case) on the graph against as many
    eager steps with the same seeds, every state tensor and the last metrics
    ``torch.equal``, the graph's replays counted on the device; each
-   capture under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
-   (c) T1 and adapt at rm3 eager and on the graph: ms/step (median of
-   SCAN_TIMED calls of SCAN_INNER steps after a warm-up call), ``measure_step`` (device busy
-   time, idle share, host launch calls per step), capture time and graph
-   pool; (d) ``adapt`` through the CLI on the graph (log and probe steps,
-   selection.json, the pick) and a train-source run stopped by SIGTERM
+   capture under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   synchronisation); (c) T1 and adapt at rm3 eager and on the graph:
+   ms/step (median of SCAN_TIMED calls of the steps (a) and (b) held after
+   a warm-up call), ``measure_step`` (device busy time, idle share, host
+   launch calls per step), capture time and graph pool; (d) ``adapt``
+   through the CLI on the graph (log and probe steps, selection.json, the
+   pick) and a train-source run stopped by SIGTERM
    (sent to this process once its first checkpoint exists) and resumed,
    bitwise the uninterrupted run; (f) a one-rank NCCL group's step
    captured against its eager path.
@@ -178,9 +179,8 @@ Phases (any failure ends the run non-zero):
    prints the line and the phase's seconds.
 
 Time: every phase prints its seconds on a line of its own (``phase <n>
-<name>: <s> s``), and the end prints all of them with the total and the
-seconds spent inside a few helpers across phases 3-15 (CLI runs, traced
-runs, ``measure_step``, checkpoint writes, phantoms; ``HelperSeconds``).
+<name>: <s> s``, ``phase_seconds``), and the end prints all of them with
+the total.
 Each set of phantoms (``synthetic.make_dataset``) is generated once and
 handed to every later caller as a copy (``cache_phantoms``).
 
@@ -404,33 +404,6 @@ BENCH_TIMEOUT = 600
 PUBLISHED = {"measured_peak_tflops": 989.0, "measured_peak_tflops_f32": 67.0,
              "measured_hbm_gbps": 3350.0}
 
-
-
-class HelperSeconds:
-    """Seconds spent inside a few helpers that every phase calls (each
-    call's own time, nested calls included), printed at the end beside
-    the phases' seconds: where the smoke's time goes across phases."""
-
-    def __init__(self):
-        self.seconds = {}
-
-    def wrap(self, owner, attr, label):
-        fn = getattr(owner, attr)
-        tally = self.seconds.setdefault(label, [0, 0.0])
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                tally[0] += 1
-                tally[1] += time.perf_counter() - t0
-
-        setattr(owner, attr, timed)
-
-    def text(self) -> str:
-        return "; ".join(f"{label} {n} calls {s:.1f} s"
-                         for label, (n, s) in self.seconds.items())
 
 
 def cache_phantoms(synthetic) -> None:
@@ -2404,12 +2377,6 @@ def _dp_rank(rank, out_dir, port):
     dist.destroy_process_group()
 
 
-def _dp_ranks(rank, out_dir, port, commands):
-    """Phase 12 (a), then (b), in one spawned process per rank."""
-    _dp_rank(rank, out_dir, port)
-    _cli_rank(rank, commands, out_dir)
-
-
 def _cli_rank(rank, commands, out_dir):
     """Phase 12 (b), one rank of the CLI with --multihost over gloo (a
     spawned process): runs the commands ``(name, argv per rank, port)`` in
@@ -2577,8 +2544,7 @@ def phase_dp(torch, wk, tk, tmp):
     out = os.path.join(tmp, "dp")
     os.makedirs(out)
 
-    # (b)'s commands: train-source, then adapt from it, run by (a)'s two
-    # spawned ranks after their steps
+    # (b)'s commands: train-source, then adapt from it
     cmds = ("train-source", "adapt")
     outs_of = {cmd: [os.path.join(out, f"{cmd}{r}") for r in range(DP_RANKS)]
                for cmd in cmds}
@@ -2600,8 +2566,8 @@ def phase_dp(torch, wk, tk, tmp):
         commands.append((cmd, argvs, _free_port()))
     # (a) two ranks over gloo against one process
     t0 = time.perf_counter()
-    _spawn(_dp_ranks, (out, _free_port(), commands), "dp ranks")
-    wall = spawned = time.perf_counter() - t0
+    _spawn(_dp_rank, (out, _free_port()), "dp 2-rank steps")
+    wall = time.perf_counter() - t0
     ranks = []
     for r in range(DP_RANKS):
         with open(os.path.join(out, f"rank{r}.json")) as f:
@@ -2703,9 +2669,13 @@ def phase_dp(torch, wk, tk, tmp):
           f"T1 ranks {med['t1']}, adapt ranks {med[str(DP_CAPS[0])]}; one "
           f"process at batch 16: T1 "
           f"{statistics.median(one['ms']['t1'][1:]):.2f}; spawn to exit "
-          f"of (a) and (b) {wall:.1f} s", flush=True)
+          f"{wall:.1f} s", flush=True)
 
-    # (b) the CLI across the same two processes
+    # (b) the CLI across two fresh processes, as a user launches it: one
+    # spawn of two ranks runs both commands in turn
+    t0 = time.perf_counter()
+    _spawn(_cli_rank, (commands, out), "dp cli")
+    spawned = time.perf_counter() - t0
     for cmd in cmds:
         outs = outs_of[cmd]
         logs, wall = [], 0.0
@@ -2744,8 +2714,8 @@ def phase_dp(torch, wk, tk, tmp):
             fail(f"dp cli {cmd}: rank 0 wrote {names}, {len(sigs)} metric "
                  f"lines, {len(set(sigs))} distinct")
         print(f"dp (b) {cmd} --multihost, 2 ranks on cuda:0 over gloo, "
-              f"{DP_CLI_STEPS} steps: wall {wall:.1f} s in the ranks ((a) "
-              f"and (b) in one spawn: {spawned:.1f} s spawn to exit); "
+              f"{DP_CLI_STEPS} steps: wall {wall:.1f} s in the ranks (both "
+              f"commands in one spawn: {spawned:.1f} s spawn to exit); "
               "launches per rank "
               f"warp {DP_CLI_STEPS}, conv_stats {15 * DP_CLI_STEPS}; rank 0 "
               f"wrote {names}; rank 1 wrote nothing; both ranks: last "
@@ -3111,9 +3081,11 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
     return total
 
 
-# phase 14: the compiled multi-step dispatch.  SCAN_INNER train steps per
-# call (drivers.pick_inner gives 50 for both shipped configs; 10 keeps a
-# multi-step graph at a fifth of the eager twin's and the trace's cost),
+# phase 14: the compiled multi-step dispatch.  (a) T1 runs as many train
+# steps per call as drivers.pick_inner gives the shipped config (50 for
+# both shipped configs: the length the CLI and the API capture); the
+# adapt cases SCAN_INNER (10 keeps a multi-step graph at a fifth of the
+# eager twin's and the trace's cost), and
 # SCAN_THROTTLE_INNER for the throttle case, whose critic, trained ahead,
 # must be held back within the call (it held 7 of 25 steps on an H100); a
 # timed
@@ -3130,8 +3102,10 @@ SCAN_NCCL = 10
 # SCAN_CLI_PRETRAIN critic pretrain + SCAN_CLI_ADAPT adapt steps; log,
 # checkpoint and probe every SCAN_CLI_INNER, so pick_inner gives
 # SCAN_CLI_INNER steps per call for both (the probe cadence is at most a
-# quarter of the adaptation's steps: SCAN_CLI_ADAPT >= 4 * SCAN_CLI_INNER)
-SCAN_CLI_SOURCE, SCAN_CLI_PRETRAIN, SCAN_CLI_ADAPT = 20, 10, 40
+# quarter of the adaptation's steps: SCAN_CLI_ADAPT >= 4 * SCAN_CLI_INNER);
+# the SIGTERM run, stopped at its first checkpoint, has SCAN_CLI_SOURCE -
+# SCAN_CLI_INNER steps (about 1.8 s on an H100) left to catch the signal in
+SCAN_CLI_SOURCE, SCAN_CLI_PRETRAIN, SCAN_CLI_ADAPT = 40, 10, 40
 SCAN_CLI_INNER = 10
 SCAN_CLI_SETS = ["segmenter.train_fused=pallas",
                  f"source.steps={SCAN_CLI_SOURCE}",
@@ -3205,8 +3179,9 @@ def _scan_compare(torch, counters, label, make, cfg, state0, data, per_step,
     return graph, eager, g_state, added
 
 
-def _scan_time(torch, label, step, state, data, make, cfg, graph: bool):
-    """ms/step of ``step`` (SCAN_INNER steps per call; median of SCAN_TIMED
+def _scan_time(torch, label, step, state, data, make, cfg, graph: bool,
+               inner=SCAN_INNER):
+    """ms/step of ``step`` (``inner`` steps per call; median of SCAN_TIMED
     calls; ``_scan_compare``'s call of it was the warm-up), then
     measure_step of SCAN_PROFILE-step calls of the same path.  Returns
     (dict, last state)."""
@@ -3219,7 +3194,7 @@ def _scan_time(torch, label, step, state, data, make, cfg, graph: bool):
         t0 = time.perf_counter()
         state, metrics = step(state, data, 100 + i)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1000 / SCAN_INNER)
+        times.append((time.perf_counter() - t0) * 1000 / inner)
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         fail(f"scan {label}: metrics {metrics}")
     short = loop.scanned_step(make(cfg, sample_from_device=True),
@@ -3234,7 +3209,7 @@ def _scan_time(torch, label, step, state, data, make, cfg, graph: bool):
         out["capture_s"] = short.stats["capture_s"]
         out["pool_mib"] = short.stats["pool_bytes"] / 2**20
     print(f"scan {label}: {out['ms_per_step']:.2f} ms/step (median of "
-          f"{SCAN_TIMED} calls of {SCAN_INNER} after the warm-up call: "
+          f"{SCAN_TIMED} calls of {inner} after the warm-up call: "
           f"{[round(t, 2) for t in times]})", flush=True)
     print_profile(f"scan {label}", prof)
     del short
@@ -3245,10 +3220,11 @@ def phase_scan(torch, wk, tk, tmp):
     """Phase 14: the compiled multi-step dispatch on the card.  (d1)
     train-source through the CLI on the graph (10 steps per call), which is
     also the source of (b); (a) T1 and (b) adapt (mri2ct at rm3; ct2mri at
-    rm2 with the throttle holding steps, and with dam_ema=0.5): SCAN_INNER
-    steps on the graph against as many eager steps with the same seeds,
-    bitwise; (c) both
-    timed eager and on the graph; (d2) adapt through the CLI on the graph
+    rm2 with the throttle holding steps, and with dam_ema=0.5): steps on
+    the graph (pick_inner's 50 for T1, SCAN_INNER or SCAN_THROTTLE_INNER
+    for adapt) against as many eager steps with the same seeds, bitwise;
+    (c) both timed eager and on the graph; (d2) adapt through the CLI on
+    the graph
     (log, probe and checkpoint steps, selection), and a train-source run
     stopped by SIGTERM and resumed, bitwise the uninterrupted run; (f) a
     one-rank NCCL step captured against its eager path.  The CLI runs of
@@ -3323,18 +3299,20 @@ def phase_scan(torch, wk, tk, tmp):
         volumes.volumes_to_slices(vols, labs, context=3, drop_empty=True),
         cfg.data.num_classes, DEVICE)
     state0 = source.init_state(cfg.run.seed, cfg, DEVICE)
+    t1_inner = drivers.pick_inner(cfg.source.steps, cfg.run.log_every,
+                                  cfg.run.ckpt_every)
     graph, eager, state, added = _scan_compare(
         torch, counters, "(a) T1 mri2ct", source.make_train_step, cfg,
-        state0, data, (1, 15))
+        state0, data, (1, 15), inner=t1_inner)
     count(added)
     timing = {}
     wk.LAUNCHES = tk.LAUNCHES = 0
     timing["T1 eager"], _ = _scan_time(torch, "(c) T1 eager", eager, state0,
                                        data, source.make_train_step, cfg,
-                                       False)
+                                       False, t1_inner)
     timing["T1 graph"], _ = _scan_time(torch, "(c) T1 graph", graph, state,
                                        data, source.make_train_step, cfg,
-                                       True)
+                                       True, t1_inner)
     count((wk.LAUNCHES, tk.LAUNCHES))
     del graph, eager, state, state0
     marks.append(("(a) + (c) T1", time.perf_counter() - t_phase))
@@ -3433,8 +3411,8 @@ def phase_scan(torch, wk, tk, tmp):
              f"best {best}, {names}")
 
     # (d3) train-source stopped by SIGTERM once its first checkpoint
-    # (step SCAN_CLI_INNER) exists (a watcher thread signals this process; the loop's guard
-    # catches it), resumed, against (d1)'s uninterrupted run
+    # (step SCAN_CLI_INNER) exists (a watcher thread signals this process;
+    # the loop's guard catches it), resumed, against (d1)'s uninterrupted run
     cut = os.path.join(tmp, "scan-source-cut")
     argv = ["train-source", *common, *cli_sets, "--out", cut]
     done = threading.Event()
@@ -3521,7 +3499,8 @@ HOST_STEPS = 10
 HOST_TIMED = 3
 GRAPH_SWEEP_ADAPT = 20
 HOST_SETS = ["segmenter.train_fused=pallas", "run.log_every=1",
-             f"source.steps={HOST_STEPS}", f"adapt.pretrain_steps={HOST_STEPS}",
+             f"source.steps={HOST_STEPS}",
+             f"adapt.pretrain_steps={HOST_STEPS}",
              f"adapt.steps={HOST_STEPS}"]
 SERVE_TIMED = 3
 PROBE_TIMED = 3
@@ -3966,67 +3945,55 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from mcmda_tpu_torch import config as config_mod
-        from mcmda_tpu_torch import cli
         from mcmda_tpu_torch.data import pipeline, synthetic
         from mcmda_tpu_torch.kernels import build
         from mcmda_tpu_torch.kernels import fused_conv as fk
         from mcmda_tpu_torch.kernels import thin_conv as sk
         from mcmda_tpu_torch.kernels import train_conv as tk
         from mcmda_tpu_torch.kernels import warp as wk
-        from mcmda_tpu_torch.utils import checkpoint, profiling
         from mcmda_tpu_torch.utils import device as device_mod
     except ImportError as e:
         fail(f"run from the root of a checkout ({e})")
 
     # 1. device
-    t_device = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi: {smi.stderr.strip()}")
-    device_mod.resolve(DEVICE)
-    kind = torch.cuda.get_device_name(0)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(f"device: {kind}, {torch.cuda.device_count()} visible; torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}; pins "
-          f"{json.dumps(device_mod.settings())}", flush=True)
-    if device_mod.settings()["tf32"]:
-        fail("TF32 is not pinned off")
-    seconds["1 device"] = s = round(time.perf_counter() - t_device, 1)
-    print(f"phase 1 device: {s:.1f} s", flush=True)
+    with phase_seconds(seconds, 1, "device"):
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        if smi.returncode != 0:
+            fail(f"nvidia-smi: {smi.stderr.strip()}")
+        device_mod.resolve(DEVICE)
+        kind = torch.cuda.get_device_name(0)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        print(f"device: {kind}, {torch.cuda.device_count()} visible; torch "
+              f"{torch.__version__}, CUDA {torch.version.cuda}; pins "
+              f"{json.dumps(device_mod.settings())}", flush=True)
+        if device_mod.settings()["tf32"]:
+            fail("TF32 is not pinned off")
 
     # 2. build
-    t0 = time.perf_counter()
-    lib = build.build()
-    with open(os.path.join(os.path.dirname(lib), "nvcc.log")) as f:
-        report = ptxas_report(f.read())
-    ring = {(dt, k): build.load().mcmda_conv_smem_bytes(bf, 1 << 20, k)
-            for dt, bf in (("f32", 0), ("bf16", 1)) for k in (16, 32, 64, 128)}
-    print(f"build: {os.path.relpath(lib, ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas per instantiation: "
-          + " | ".join(f"{name} {regs} registers, {spill} B spilled, "
-                       f"{smem} B static shared" for name, regs, spill, smem
-                       in report)
-          + "; conv ring (dynamic shared memory) by x dtype and tile "
-          "width: " + ", ".join(f"{dt} {k}: {b} B" for (dt, k), b
-                                in ring.items()), flush=True)
-    spilled = [name for name, _, spill, _ in report if spill]
-    if spilled:
-        fail(f"kernels spill registers: {spilled}")
-    seconds["2 build"] = s = round(time.perf_counter() - t0, 1)
-    print(f"phase 2 build: {s:.1f} s", flush=True)
+    with phase_seconds(seconds, 2, "build"):
+        t0 = time.perf_counter()
+        lib = build.build()
+        with open(os.path.join(os.path.dirname(lib), "nvcc.log")) as f:
+            report = ptxas_report(f.read())
+        ring = {(dt, k): build.load().mcmda_conv_smem_bytes(bf, 1 << 20, k)
+                for dt, bf in (("f32", 0), ("bf16", 1))
+                for k in (16, 32, 64, 128)}
+        print(f"build: {os.path.relpath(lib, ROOT)} in "
+              f"{time.perf_counter() - t0:.1f} s; ptxas per instantiation: "
+              + " | ".join(f"{name} {regs} registers, {spill} B spilled, "
+                           f"{smem} B static shared"
+                           for name, regs, spill, smem in report)
+              + "; conv ring (dynamic shared memory) by x dtype and tile "
+              "width: " + ", ".join(f"{dt} {k}: {b} B" for (dt, k), b
+                                    in ring.items()), flush=True)
+        spilled = [name for name, _, spill, _ in report if spill]
+        if spilled:
+            fail(f"kernels spill registers: {spilled}")
 
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
-    helpers = HelperSeconds()
-    helpers.wrap(synthetic, "make_dataset", "phantoms generated")
     cache_phantoms(synthetic)
-    helpers.wrap(synthetic, "make_dataset", "phantoms asked for")
-    helpers.wrap(cli, "main", "CLI runs")
-    helpers.wrap(checkpoint, "save", "checkpoint writes")
-    helpers.wrap(profiling, "measure_step", "measure_step")
-    helpers.wrap(sys.modules[__name__], "traced_launches",
-                 "traced runs (trace included)")
 
     # 3. kernel vs plain
     with phase_seconds(seconds, 3, "kernel"):
@@ -4114,7 +4081,6 @@ def main() -> int:
         phase_bench(torch)
     print(f"phase seconds: {json.dumps(seconds)}; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    print(f"helper seconds (phases 3-15): {helpers.text()}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "conv_bn_act",

@@ -28,15 +28,12 @@ with their spread next to the spread over adaptation seeds
 source states (CONTEXT: ``results/ct2mri_nhwc_sweep.json``, the r2
 recipe's ``results/ct2mri_seed_sweep.json``) beside its gated pool, each
 with its no-adapt Dice (``reference_context``).  A 20,000-step retrain of
-the main sweep's source, recorded from its log by ``--record-retrain``
-(``record_retrain``), is printed against the main sweep's digest.
+the main sweep's source (RETRAIN, the figures its run printed) is printed
+against the main sweep's digest.
 
 Usage (from the root of a checkout; numpy and json only)::
 
     python -m mcmda_tpu_torch.scripts.sweep_parity
-    # a retrain's log (seed_sweep --seeds 0, after a ``card: <nvidia-smi
-    # name, power limit>`` line) into RETRAIN's artifact
-    python -m mcmda_tpu_torch.scripts.sweep_parity --record-retrain LOG
 """
 
 from __future__ import annotations
@@ -47,7 +44,6 @@ import itertools
 import json
 import math
 import os
-import re
 
 import numpy as np
 
@@ -68,8 +64,9 @@ CONTEXT = {"ct2mri": (
     ("r2 recipe, superseded", ("results/ct2mri_seed_sweep.json",)),
     ("the gated pool", REFERENCE["ct2mri"]),
 )}
-# a retrain of the main ct2mri sweep's source state (run.seed 0), from its
-# log (``record_retrain``)
+# a retrain of the main ct2mri sweep's source state (run.seed 0): the card,
+# steps, seconds, digest and no-adapt Dice that its seed_sweep --seeds 0
+# run printed, and whether the digest is the main sweep's
 RETRAIN = "results/torch_h100/{}_source_retrain.json"
 # the checkpoint the recipe ships, and the training dynamics apart from
 # selection; each held at ALPHA = 0.05 / 2
@@ -288,44 +285,6 @@ def reference_context(direction) -> list:
     return rows
 
 
-_LOG_KEYS = (("card", re.compile(r"^card: (.+)$")),
-             ("source_steps", re.compile(r"^\[sweep\] source training "
-                                         r"(\d+) steps")),
-             ("source_seconds", re.compile(r"^\[sweep\] source done in "
-                                           r"(\d+)s")),
-             ("source_digest", re.compile(r"^\[sweep\] source digest "
-                                          r"([0-9a-f]{64})$")),
-             ("no_adapt", re.compile(r"^\[sweep\] no-adapt mean Dice: "
-                                     r"([0-9.]+)$")))
-
-
-def record_retrain(lines, direction="ct2mri") -> dict:
-    """The record of a retrain of the main sweep's source from the lines
-    of its log: the card, steps, seconds, digest and no-adapt Dice it
-    printed, whether the digest is the main sweep's, and the lines read;
-    a key missing from the log raises."""
-    got, kept = {}, []
-    for line in (ln.rstrip("\n") for ln in lines):
-        for key, pattern in _LOG_KEYS:
-            m = pattern.match(line)
-            if m and key not in got:
-                got[key] = m.group(1)
-                kept.append(line)
-    missing = [k for k, _ in _LOG_KEYS if k not in got]
-    if missing:
-        raise ValueError(f"the log lacks {missing}")
-    main_digest = port_artifact(direction)["settings"]["source_digest"]
-    return {"direction": direction, "card": got["card"],
-            "source_steps": int(got["source_steps"]),
-            "source_seconds": int(got["source_seconds"]),
-            "source_digest": got["source_digest"],
-            "no_adapt_printed": float(got["no_adapt"]),
-            "main_sweep": PORT.format(direction),
-            "main_sweep_digest": main_digest,
-            "digest_equal": got["source_digest"] == main_digest,
-            "log": kept}
-
-
 def _spread(v) -> str:
     v = np.asarray(v, np.float64)
     return (f"{v.min():.4f}-{v.max():.4f} (range {v.max() - v.min():.4f}, "
@@ -333,19 +292,8 @@ def _spread(v) -> str:
 
 
 def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0])
-    parser.add_argument("--record-retrain", metavar="LOG",
-                        help="write RETRAIN's ct2mri artifact from the log "
-                             "of a retrain of the main sweep's source, "
-                             "then compare as usual")
-    args = parser.parse_args(argv)
-    if args.record_retrain:
-        with open(args.record_retrain) as f:
-            rec = record_retrain(f)
-        with open(os.path.join(ROOT, RETRAIN.format("ct2mri")), "w") as f:
-            json.dump(rec, f, indent=1)
-            f.write("\n")
+    argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0]).parse_args(argv)
     result = {d: compare(d) for d in REFERENCE
               if os.path.exists(os.path.join(ROOT, PORT.format(d)))}
     print("| Direction | Metric | Port n, mean ± std | Reference n, mean ± "

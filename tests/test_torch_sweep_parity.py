@@ -369,32 +369,13 @@ def test_reference_context_is_ct2mri_only():
 
 def test_retrain_artifact_pins_its_finding():
     """A 20,000-step source run at ct2mri's run.seed 0 on an H100: its
-    digest, whether it is the main sweep's, and a record that its own log
-    lines give again."""
+    digest and whether it is the main sweep's."""
     rec = sp._load(sp.RETRAIN.format("ct2mri"))
     assert rec["source_steps"] == LENGTHS["ct2mri"][0]
     assert "H100" in rec["card"]
     assert rec["source_digest"] == RETRAIN_DIGEST
     assert rec["main_sweep_digest"] == DIGESTS["ct2mri"]
     assert rec["digest_equal"] == (RETRAIN_DIGEST == DIGESTS["ct2mri"])
-    assert sp.record_retrain(rec["log"]) == rec
-
-
-def test_record_retrain_reads_a_log_and_refuses_one_without_a_digest():
-    lines = ["card: NVIDIA H100 80GB HBM3, 700.00 W",
-             "[sweep] source training 20000 steps...",
-             "[sweep] source done in 1181s",
-             "[sweep] source digest " + "ab" * 32,
-             "[sweep] no-adapt mean Dice: 0.316",
-             "[sweep] source digest " + "cd" * 32]
-    rec = sp.record_retrain(lines)
-    assert (rec["source_steps"], rec["source_seconds"],
-            rec["source_digest"], rec["no_adapt_printed"]) == \
-        (20000, 1181, "ab" * 32, 0.316)
-    assert rec["digest_equal"] is False
-    assert rec["log"] == lines[:5]
-    with pytest.raises(ValueError, match="source_digest"):
-        sp.record_retrain(lines[:3])
 
 
 def test_main_prints_the_draws_the_context_and_the_retrain(monkeypatch,
