@@ -141,14 +141,14 @@ Phases (any failure ends the run non-zero):
    ``torch.equal``, the graph's replays counted on the device; each
    capture under ``torch.cuda.set_sync_debug_mode("error")`` (no host
    synchronisation); (c) T1 and adapt at rm3 eager and on the graph:
-   ms/step (median of SCAN_TIMED calls of the steps (a) and (b) held after
-   a warm-up call), ``measure_step`` (device busy time, idle share, host
-   launch calls per step), capture time and graph pool; (d) ``adapt``
-   through the CLI on the graph (log and probe steps, selection.json, the
-   pick) and a train-source run stopped by SIGTERM
-   (sent to this process once its first checkpoint exists) and resumed,
-   bitwise the uninterrupted run; (f) a one-rank NCCL group's step
-   captured against its eager path.
+   ms/step (median of SCAN_TIMED calls of the steps (a) and (b) held, one
+   of T1's 50, after a warm-up call), ``measure_step`` (device busy time,
+   idle share, host launch calls per step), capture time and graph pool;
+   (d) ``adapt`` through the CLI on the graph (log and probe steps,
+   selection.json, the pick) and a train-source run stopped by SIGTERM
+   (sent to this process by the save of its first checkpoint,
+   ``sigterm_at_checkpoint``) and resumed, bitwise the uninterrupted run;
+   (f) a one-rank NCCL group's step captured against its eager path.
 15. graphs: the last eager dispatch on CUDA graphs, at full width
    (configs/mri2ct.json, kernel path), each against its eager twin
    (``eager_dispatch``) and timed both ways (host clock, median after a
@@ -223,6 +223,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -3087,25 +3088,24 @@ def phase_ct2mri(torch, wk, tk, fk, tmp, n_sites, rm3_ms):
 # adapt cases SCAN_INNER (10 keeps a multi-step graph at a fifth of the
 # eager twin's and the trace's cost), and
 # SCAN_THROTTLE_INNER for the throttle case, whose critic, trained ahead,
-# must be held back within the call (it held 7 of 25 steps on an H100); a
-# timed
-# path is the median of SCAN_TIMED calls after a warm-up call (the call
-# that held it against the other path), and
+# must be held back within the call (it held 2-7 of 25 steps on an H100);
+# a timed path is the median of SCAN_TIMED calls (SCAN_T1_TIMED of T1's
+# 50 steps) after a warm-up call (the call that held it against the other
+# path), and
 # measure_step reads calls of SCAN_PROFILE steps of each path (a 50-step
 # eager call under the profiler would hold some 175,000 kernel events).
 SCAN_INNER = 10
 SCAN_THROTTLE_INNER = 25
 SCAN_TIMED = 2
+SCAN_T1_TIMED = 1
 SCAN_PROFILE = 2
 SCAN_NCCL = 10
 # (d) the CLI on the graph: SCAN_CLI_SOURCE T1 steps, then
 # SCAN_CLI_PRETRAIN critic pretrain + SCAN_CLI_ADAPT adapt steps; log,
 # checkpoint and probe every SCAN_CLI_INNER, so pick_inner gives
 # SCAN_CLI_INNER steps per call for both (the probe cadence is at most a
-# quarter of the adaptation's steps: SCAN_CLI_ADAPT >= 4 * SCAN_CLI_INNER);
-# the SIGTERM run, stopped at its first checkpoint, has SCAN_CLI_SOURCE -
-# SCAN_CLI_INNER steps (about 1.8 s on an H100) left to catch the signal in
-SCAN_CLI_SOURCE, SCAN_CLI_PRETRAIN, SCAN_CLI_ADAPT = 40, 10, 40
+# quarter of the adaptation's steps: SCAN_CLI_ADAPT >= 4 * SCAN_CLI_INNER)
+SCAN_CLI_SOURCE, SCAN_CLI_PRETRAIN, SCAN_CLI_ADAPT = 20, 10, 40
 SCAN_CLI_INNER = 10
 SCAN_CLI_SETS = ["segmenter.train_fused=pallas",
                  f"source.steps={SCAN_CLI_SOURCE}",
@@ -3180,8 +3180,8 @@ def _scan_compare(torch, counters, label, make, cfg, state0, data, per_step,
 
 
 def _scan_time(torch, label, step, state, data, make, cfg, graph: bool,
-               inner=SCAN_INNER):
-    """ms/step of ``step`` (``inner`` steps per call; median of SCAN_TIMED
+               inner=SCAN_INNER, timed=SCAN_TIMED):
+    """ms/step of ``step`` (``inner`` steps per call; median of ``timed``
     calls; ``_scan_compare``'s call of it was the warm-up), then
     measure_step of SCAN_PROFILE-step calls of the same path.  Returns
     (dict, last state)."""
@@ -3189,7 +3189,7 @@ def _scan_time(torch, label, step, state, data, make, cfg, graph: bool,
     from mcmda_tpu_torch.utils import profiling
 
     times = []
-    for i in range(SCAN_TIMED):
+    for i in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, data, 100 + i)
@@ -3209,11 +3209,36 @@ def _scan_time(torch, label, step, state, data, make, cfg, graph: bool,
         out["capture_s"] = short.stats["capture_s"]
         out["pool_mib"] = short.stats["pool_bytes"] / 2**20
     print(f"scan {label}: {out['ms_per_step']:.2f} ms/step (median of "
-          f"{SCAN_TIMED} calls of {inner} after the warm-up call: "
+          f"{timed} calls of {inner} after the warm-up call: "
           f"{[round(t, 2) for t in times]})", flush=True)
     print_profile(f"scan {label}", prof)
     del short
     return out, state
+
+
+@contextlib.contextmanager
+def sigterm_at_checkpoint(out_dir, at):
+    """Within the block, the first ``checkpoint.save`` of step ``at`` into
+    ``out_dir`` sends SIGTERM to this process once the file is written: a
+    preemption at a known step, however fast the host runs the steps after
+    it."""
+    from mcmda_tpu_torch.utils import checkpoint
+
+    save, sent = checkpoint.save, []
+
+    def save_then_signal(path, state, step=None):
+        written = save(path, state, step=step)
+        if step == at and not sent and \
+                os.path.abspath(path) == os.path.abspath(out_dir):
+            sent.append(step)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return written
+
+    checkpoint.save = save_then_signal
+    try:
+        yield
+    finally:
+        checkpoint.save = save
 
 
 def phase_scan(torch, wk, tk, tmp):
@@ -3234,8 +3259,6 @@ def phase_scan(torch, wk, tk, tmp):
     replays of the traced runs."""
     import contextlib
     import io
-    import signal
-    import threading
     import torch.distributed as dist
     from mcmda_tpu_torch import cli, weights
     from mcmda_tpu_torch import config as config_mod
@@ -3309,10 +3332,10 @@ def phase_scan(torch, wk, tk, tmp):
     wk.LAUNCHES = tk.LAUNCHES = 0
     timing["T1 eager"], _ = _scan_time(torch, "(c) T1 eager", eager, state0,
                                        data, source.make_train_step, cfg,
-                                       False, t1_inner)
+                                       False, t1_inner, SCAN_T1_TIMED)
     timing["T1 graph"], _ = _scan_time(torch, "(c) T1 graph", graph, state,
                                        data, source.make_train_step, cfg,
-                                       True, t1_inner)
+                                       True, t1_inner, SCAN_T1_TIMED)
     count((wk.LAUNCHES, tk.LAUNCHES))
     del graph, eager, state, state0
     marks.append(("(a) + (c) T1", time.perf_counter() - t_phase))
@@ -3410,32 +3433,20 @@ def phase_scan(torch, wk, tk, tmp):
         fail(f"scan (d) adapt: rc {rc}, steps {steps}, probes {probes}, "
              f"best {best}, {names}")
 
-    # (d3) train-source stopped by SIGTERM once its first checkpoint
-    # (step SCAN_CLI_INNER) exists (a watcher thread signals this process;
-    # the loop's guard catches it), resumed, against (d1)'s uninterrupted run
+    # (d3) train-source stopped by SIGTERM as its first checkpoint (step
+    # SCAN_CLI_INNER) is written: the save sends the signal to this process
+    # once the file exists, so the loop's guard catches it at that step
+    # however fast the host runs the steps after it; resumed, against
+    # (d1)'s uninterrupted run
     cut = os.path.join(tmp, "scan-source-cut")
     argv = ["train-source", *common, *cli_sets, "--out", cut]
-    done = threading.Event()
-
-    def watch():
-        while not done.wait(0.01):
-            if os.path.exists(os.path.join(
-                    cut, f"step_{SCAN_CLI_INNER:08d}.npz")):
-                os.kill(os.getpid(), signal.SIGTERM)
-                return
-
-    watcher = threading.Thread(target=watch, daemon=True)
-    watcher.start()
     # (not traced: the two runs' kernels are (d1)'s; the kernels line
     # takes their wrappers' launches)
     log = io.StringIO()
     wk.LAUNCHES = tk.LAUNCHES = 0
-    try:
-        with contextlib.redirect_stdout(log):
-            rc_cut = cli.main(argv)
-    finally:
-        done.set()
-        watcher.join()
+    with sigterm_at_checkpoint(cut, SCAN_CLI_INNER), \
+            contextlib.redirect_stdout(log):
+        rc_cut = cli.main(argv)
     out = log.getvalue()
     stopped = [ln for ln in out.splitlines() if "preemption signal" in ln]
     kept = checkpoint.latest_step(cut)
