@@ -13,11 +13,17 @@ Phases (any failure ends the run non-zero):
    f32.
 2. build: compiles the hand-written CUDA kernels from the checkout's
    sources (one nvcc per source, in parallel); prints ptxas's registers,
-   shared memory and spills per kernel instantiation; no kernel may spill.
+   shared memory and spills per kernel instantiation; no kernel may spill;
+   counts HGMMA and UTMALDG in the SASS of each Hopper-loop conv kernel
+   (``cuobjdump -sass``; each must hold both).
 3. kernel: the fused conv+BN+activation kernel against its plain PyTorch
    version at every call-site shape of the full-width serving forward
    (batch 8, and 16 for flip TTA), f32 and the bf16 inputs the
    ``eval_bf16`` flow gives it; max abs error and median times of both;
+   the main loop each site takes (``conv_tile.plan``: the Hopper loop,
+   wgmma + TMA, at every tail site, else mma.sync; the library's plan held
+   to the Python mirror) and the Hopper loop's weight pre-pass timed alone
+   and held bitwise to its plain version;
    then the f64 control per call-site shape at batch 1 (the kernel's error
    against an f64 conv at most F64_RATIO times the plain f32 conv's); then
    the differentiable form (``ConvBnAct``: the wrapper under autograd) at
@@ -42,8 +48,9 @@ Phases (any failure ends the run non-zero):
    convs of a
    train step at batch 8 that take it (``train_call_sites``: z, the
    moments, the f64 control of z at batch 1, and the gradients of its
-   autograd Function at 512->512 d4); max abs errors and median times (the
-   warp's both on one buffer and out of the L2).
+   autograd Function at 512->512 d4; the loop of each site and the weight
+   pre-pass as in phase 3); max abs errors and median times (the warp's
+   both on one buffer and out of the L2).
 6. train-source: ``python -m mcmda_tpu_torch train-source --synthetic`` at
    full width through the CLI (see TRAIN_RUNS): the kernel path with
    checkpoints, prune and val_dice firing; the shipped config; the plain
@@ -210,7 +217,10 @@ CUDA cores.  The warp's and the stem's whole working set (34-40 MB) fits
 the card's 50 MB L2, so 20 calls on one buffer may be served by it: their
 ``ms`` (and ``library_ms``) rotate over COLD_SETS distinct buffers and are
 what the bound is compared with; ``one_buffer_ms`` is the timing of earlier
-versions of this script.  The line before the last is a JSON object of
+versions of this script.  The conv kernels' ``ms`` include, on the Hopper
+loop, the weight pre-pass that each launch runs first; ``prepass_ms`` is
+that pre-pass timed alone over the same sites, beside its byte bound.
+The line before the last is a JSON object of
 kernel results (the fused conv's also at batch 16); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -462,28 +472,37 @@ def call_sites(cfg, n: int, size: int):
     return sites
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's short name from its mangled one: conv kernels by x dtype
+    and tile width on the mma.sync loop, e.g. ``conv_bn_act_kernel<bf16,
+    128>``, and by loop and width on the Hopper loop,
+    ``conv_bn_act_kernel<wgmma,128>``; the warp and stem kernels by their
+    integer template arguments, e.g. ``stem_conv_kernel<16,3,1>`` (K, C, x
+    read 16 bytes at a time)."""
+    name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
+    tile = re.search(r"TileILi(\d+)E", mangled)
+    args = re.search(name + r"I((?:L[ib]\d+E)+)E", mangled)
+    if "CUtensorMap" in mangled:
+        return name + f"<wgmma,{args.group(1)[2:-1]}>"
+    if tile:
+        dt = "bf16" if "bfloat16" in mangled else "f32"
+        return name + f"<{dt},{tile.group(1)}>"
+    if args:
+        return name + "<" + ",".join(re.findall(r"L[ib](\d+)E",
+                                                args.group(1))) + ">"
+    return name
+
+
 def ptxas_report(log: str):
     """(kernel, registers, spill-store bytes, static shared bytes) per
-    compiled kernel in ptxas's ``-v`` report; conv kernels are named by x
-    dtype and tile width, e.g. ``conv_bn_act_kernel<bf16,128>``, the warp
-    and stem kernels by their integer template arguments, e.g.
-    ``stem_conv_kernel<16,3,1>`` (K, C, x read 16 bytes at a time)."""
+    compiled kernel in ptxas's ``-v`` report, named by ``kernel_label``."""
     out = []
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
             r"(\d+) bytes spill stores.*\n.*Used (\d+) registers(.*)", log):
         mangled, spill, regs, rest = m.groups()
-        name = re.search(r"\d+([a-z_]+_kernel)", mangled).group(1)
-        tile = re.search(r"TileILi(\d+)E", mangled)
-        args = re.search(name + r"I((?:L[ib]\d+E)+)E", mangled)
-        if tile:
-            dt = "bf16" if "bfloat16" in mangled else "f32"
-            name += f"<{dt},{tile.group(1)}>"
-        elif args:
-            name += "<" + ",".join(re.findall(r"L[ib](\d+)E",
-                                              args.group(1))) + ">"
         smem = re.search(r"(\d+) bytes smem", rest)
-        out.append((name, int(regs), int(spill),
+        out.append((kernel_label(mangled), int(regs), int(spill),
                     int(smem.group(1)) if smem else 0))
     return out
 
@@ -590,6 +609,94 @@ def library_conv(torch, x, w, dilation):
     return lambda: F.conv2d(xl, wl, padding=dilation, dilation=dilation)
 
 
+def sass_check(lib):
+    """Count HGMMA (wgmma) and UTMALDG (TMA tensor loads) in the SASS of
+    each Hopper-loop kernel of the built library (``cuobjdump -sass``);
+    fail if one lacks either.  Returns the line to print, or None where
+    the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for text in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = text.split("\n", 1)[0]
+        if "CUtensorMap" not in head:
+            continue
+        counts[kernel_label(head)] = (text.count("HGMMA"),
+                                      text.count("UTMALDG"))
+    missing = [n for n, (g, t) in counts.items() if not (g and t)]
+    if len(counts) != 4 or missing:
+        fail(f"Hopper-loop kernels without HGMMA / UTMALDG in the SASS: "
+             f"{missing or counts}")
+    return ("sass: " + ", ".join(f"{n} {g} HGMMA, {t} UTMALDG"
+                                 for n, (g, t) in counts.items()))
+
+
+def site_plan(torch, xs, k, x_dt):
+    """The loop the library plans for a conv of x shape ``xs`` to k
+    channels (``conv_tile.plan_on_device``); fails unless the Python
+    mirror (``conv_tile.plan``, what the CPU tests walk) agrees."""
+    from mcmda_tpu_torch.kernels import conv_tile
+
+    dt = getattr(torch, x_dt)
+    p = conv_tile.plan_on_device(*xs, k, dt, "cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if p != conv_tile.plan(*xs, k, dt, sms):
+        fail(f"conv plan at x={xs} k={k} {x_dt}: library {p}, mirror "
+             f"{conv_tile.plan(*xs, k, dt, sms)}")
+    return p
+
+
+def plan_tag(p):
+    return f"{p.loop}/{p.bn}"
+
+
+def is_tail(xs, k, x_dt):
+    """A 1/8-resolution tail site the Hopper loop must take."""
+    return (xs[1] == xs[2] == SIZE // 8 and x_dt == "float32"
+            and xs[3] % 32 == 0 and k % 64 == 0)
+
+
+def check_tail_loops(label, plans):
+    """Print each site's loop; fail unless every tail site took the
+    Hopper loop.  ``plans``: [(site, xs, k, x dtype, plan)]."""
+    tail = [(s, p) for s, xs, k, dt, p in plans if is_tail(xs, k, dt)]
+    off = [s for s, p in tail if p.loop != "wgmma"]
+    print(f"{label}: loops " + ", ".join(
+        f"{s} {plan_tag(p)}" for s, _, _, _, p in plans)
+        + f"; {len(tail) - len(off)} of {len(tail)} tail sites on the "
+        "Hopper loop (wgmma + TMA)", flush=True)
+    if off or not tail:
+        fail(f"{label}: tail sites off the Hopper loop: {off}")
+
+
+def prepass_ms(torch, sites):
+    """(ms, bound ms) of the Hopper loop's weight pre-pass summed over
+    ``sites`` ((c, k) per Hopper-loop call): each timed alone through
+    ``conv_tile.split_weights`` (the conv wrappers run it inside their own
+    launch, so it is part of their ms) after a check against its plain
+    version; bound: w read once, w_hi and w_lo written once."""
+    from mcmda_tpu_torch.kernels import conv_tile
+
+    times = {}
+    for c, k in set(sites):
+        w = torch.randn((3, 3, c, k), device="cuda")
+        got = conv_tile.split_weights(w)
+        torch.cuda.synchronize()
+        want = conv_tile.split_weights_reference(w)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"weight pre-pass differs from its plain version at "
+                 f"c={c} k={k}")
+        times[(c, k)] = gpu_time_ms(lambda: conv_tile.split_weights(w),
+                                    torch)
+    return (sum(times[ck] for ck in sites),
+            bound(sum(12.0 * 9 * c * k for c, k in sites), 0.0)[0])
+
+
 def phase_kernel(cfg, torch, fk):
     """Phase 3: kernel vs plain at every call-site shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -617,6 +724,7 @@ def phase_kernel(cfg, torch, fk):
         r = (torch.randn(xs[:3] + (k,), device="cuda", generator=gen)
              .to(getattr(torch, r_dt)) if r_dt else None)
         kw = dict(dilation=d, activation=act, residual=r)
+        plan = site_plan(torch, xs, k, x_dt)
         got = fk.conv_bn_act(x, w, scale, bias, **kw)
         torch.cuda.synchronize()
         ref = fk.conv_bn_act_reference(x, w, scale, bias, **kw)
@@ -632,13 +740,23 @@ def phase_kernel(cfg, torch, fk):
         t_l = gpu_time_ms(library_conv(torch, x, w, d), torch)
         cases[(xs, k, d, r_dt, x_dt, act)] = (t_k, t_p, t_l)
         print(f"kernel x={list(xs)} {x_dt} k={k} d={d} residual={r_dt} "
-              f"{act}: "
+              f"{act} ({plan_tag(plan)}): "
               f"max_abs_err={err:.3e} kernel_ms={t_k:.4f} "
               f"plain_ms={t_p:.4f} library_ms={t_l:.4f}", flush=True)
         if not ok:
             fail(f"kernel disagrees with plain at x={xs} {x_dt} k={k} "
                  f"d={d} residual={r_dt} {act}: max abs err {err}")
     # one forward batch's worth: each call site at its serving dtypes
+    for n, sites in per_batch.items():
+        check_tail_loops(f"kernel: batch {n}", [
+            (site, xs, k, x_dt, site_plan(torch, xs, k, x_dt))
+            for site, xs, k, _, x_dt, _ in sites])
+    pre_ms, pre_bound = prepass_ms(torch, [
+        (xs[3], k) for _, xs, k, _, x_dt, _ in per_batch[BATCH]
+        if site_plan(torch, xs, k, x_dt).loop == "wgmma"])
+    print(f"kernel: the Hopper loop's weight pre-pass per forward batch "
+          f"(any batch size): {pre_ms:.4f} ms, part of the kernel's ms "
+          f"(bound {pre_bound:.4f} ms, bytes)", flush=True)
     totals = {}
     for n, sites in per_batch.items():
         totals[n] = [sum(cases[(xs, k, d, r_dt, x_dt, "relu")][i]
@@ -683,7 +801,8 @@ def phase_kernel(cfg, torch, fk):
                  batch16_ms=totals[2 * BATCH][0],
                  batch16_plain_ms=totals[2 * BATCH][1],
                  batch16_library_ms=totals[2 * BATCH][2],
-                 batch16_bound_ms=bounds[2 * BATCH][0][0]))
+                 batch16_bound_ms=bounds[2 * BATCH][0][0],
+                 prepass_ms=pre_ms, prepass_bound_ms=pre_bound))
 
 
 def phase_kernel_vjp(torch, fk, gen):
@@ -1079,6 +1198,14 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         shapes[(xs, kk, d)] = shapes.get((xs, kk, d), 0) + 1
     worst, t_k_step, t_p_step, t_l_step = 0.0, 0.0, 0.0, 0.0
     work = []
+    plans = [(f"{list(xs)}->{kk} d{d}", xs, kk, "float32",
+              site_plan(torch, xs, kk, "float32")) for xs, kk, d in sites]
+    check_tail_loops("conv_stats: 15 sites", plans)
+    pre_ms, pre_bound = prepass_ms(torch, [
+        (xs[3], kk) for _, xs, kk, _, p in plans if p.loop == "wgmma"])
+    print(f"conv_stats: the Hopper loop's weight pre-pass per 15 sites: "
+          f"{pre_ms:.4f} ms, part of the kernel's ms (bound "
+          f"{pre_bound:.4f} ms, bytes)", flush=True)
     for (xs, kk, d), count in shapes.items():
         c = xs[-1]
         x = torch.randn(xs, device="cuda", generator=gen)
@@ -1099,7 +1226,8 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
         t_l_step += count * t_l
         b, f = conv_work(xs, kk, 4, 4, 2 * kk * 4)
         work += [(b, f, SPLIT_PRODUCTS["float32"])] * count
-        print(f"conv_stats x={list(xs)} k={kk} d={d} ({count} per step): "
+        print(f"conv_stats x={list(xs)} k={kk} d={d} ({count} per step, "
+              f"{plan_tag(site_plan(torch, xs, kk, 'float32'))}): "
               f"z max_abs_err={err:.3e}, sum rel {m1:.2e}, sumsq rel "
               f"{m2:.2e}; kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
               f"library_ms={t_l:.4f}", flush=True)
@@ -1148,7 +1276,8 @@ def phase_train_kernels(cfg, torch, wk, tk, pipeline):
                            if k.endswith("ms")}},
         "conv_stats": dict(max_abs_err=worst, ms=t_k_step,
                            plain_ms=t_p_step, bound_ms=c_ms, bound_by=c_by,
-                           library_ms=t_l_step, f32_core_bound_ms=f_ms),
+                           library_ms=t_l_step, f32_core_bound_ms=f_ms,
+                           prepass_ms=pre_ms, prepass_bound_ms=pre_bound),
     }
 
 
@@ -4002,6 +4131,8 @@ def main() -> int:
         spilled = [name for name, _, spill, _ in report if spill]
         if spilled:
             fail(f"kernels spill registers: {spilled}")
+        print(sass_check(str(lib)) or "sass: cuobjdump is missing, the "
+              "Hopper loop's instructions are not checked here", flush=True)
 
     cfg = config_mod.eval_view(config_mod.load_config(CONFIG, SETS))
     cache_phantoms(synthetic)

@@ -92,10 +92,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ctypes would pass pointers as 32-bit ints)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "mcmda_conv_bn_act": [p, i, p, p, p, p, i, p, i, i, i, i, i, i, i, p],
+        "mcmda_conv_bn_act": [p, i, p, p, p, p, p, p, i, p, i, i, i, i, i, i,
+                              i, p],
+        "mcmda_conv_plan": [i, i, i, i, i, i, i, p],
         "mcmda_conv_smem_bytes": [i, i, i],
-        "mcmda_conv_stats": [p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "mcmda_conv_stats": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "mcmda_conv_stats_partial_tiles": [i],
+        "mcmda_split_weights": [p, p, p, i, i, p],
         "mcmda_warp_affine": [p, p, p, i, i, i, i, i, p],
         "mcmda_stem_conv": [p, p, p, i, i, i, i, i, p],
     }

@@ -1,6 +1,21 @@
-// The implicit-GEMM main loop shared by the stride-1 3x3 (dilated) conv
+// The implicit-GEMM main loops shared by the stride-1 3x3 (dilated) conv
 // kernels (fused_conv.cu, train_conv.cu): NHWC activations, HWIO weights,
-// XLA SAME padding of `dilation` on each side done as a predicate.
+// XLA SAME padding of `dilation` on each side.  Two loops compute the same
+// arithmetic; `plan` (below) gives each call one of them by shape:
+//
+// - the Hopper loop (namespace hopper, at the end of this file): TMA loads
+//   into a ring of stages kept in flight by one producer warp on mbarriers,
+//   two consumer warpgroups running wgmma.  It takes f32 x with C a
+//   multiple of 32 and K a multiple of 64 whose 128-pixel tiles are whole
+//   image rows or whole parts of one row (W divides 128 and 128 / W
+//   divides H, or 128 divides W): every 1/8-resolution tail site and rm2 /
+//   rm3's f32 sites.
+// - the mma.sync loop (MainLoop): cp.async ring, mma.sync.m16n8k8.  It
+//   takes every other shape: the C = 3 stem, K <= 32, bf16 x, ragged
+//   tiles.
+//
+// The rest of this comment describes the mma.sync loop; the Hopper loop's
+// own comment says where it differs.
 //
 // Rows are output pixels (M = N*H*W), columns are output channels (K), the
 // reduction runs over the 9*C rows of the HWIO weights seen as a [9*C, K]
@@ -51,6 +66,7 @@
 // atomics), so a run repeats bit for bit.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -86,18 +102,29 @@ using Tile16 = Tile<16, 8, 1>;    // 16 x 16
 
 enum TileId { kTile128, kTile64, kTile32, kTile16 };
 
-// The channel width for an [m, k] output: the narrowest tile that covers
-// k up to 64; above that 128, unless 128-wide tiles leave SMs idle.
-inline TileId pick_tile(int m, int k) {
+// The channel width for an [m, k] output on a card of `sms` SMs: the
+// narrowest tile that covers k up to 64; above that 128, unless 128-wide
+// tiles leave SMs idle.
+inline TileId pick_tile(int m, int k, int sms) {
   if (k <= 16) return kTile16;
   if (k <= 32) return kTile32;
   if (k <= 64) return kTile64;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long blocks128 =
       static_cast<long>((m + BM - 1) / BM) * ((k + 127) / 128);
   return blocks128 >= sms ? kTile128 : kTile64;
+}
+
+inline int tile_width(TileId t) {
+  static constexpr int widths[] = {128, 64, 32, 16};
+  return widths[t];
+}
+
+// The current device's SM count.
+inline int device_sms() {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 inline int m_tiles(int m) { return (m + BM - 1) / BM; }
@@ -427,6 +454,575 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ============================================================ Hopper loop
+// The same conv, split-TF32 arithmetic and summation order by 32-deep
+// steps as MainLoop, on Hopper's own instructions.
+//
+// Operands.  wgmma's .tf32 form takes both operands K-major (the reduction
+// contiguous) and has no transpose; A may come from registers, B only from
+// shared memory.  So:
+// - B, the weights: the HWIO weights seen as [9C, K] are N-major.  A
+//   pre-pass (split_weights_kernel) reads them once per call and writes
+//   two K-major TF32 arrays [K, 9C], w_hi and w_lo, with split_tf32's
+//   rounding; TMA loads a [BN channels x 32 reduction rows] box of each per
+//   step with 128-byte swizzle, and wgmma reads them through descriptors.
+//   The pre-pass runs every call (training changes the weights every step).
+// - A, the activations: one 4-D tiled tensor map over x [N, H, W, C].  For
+//   tap (dy, dx) of channel step c0 the producer loads the box of 32
+//   channels x box_w columns x box_h rows at (c0, w0 + (dx-1)d,
+//   h0 + (dy-1)d, n): 128 pixels of 128 bytes, swizzled.  Coordinates
+//   outside the tensor read as zeros, which is exactly the SAME padding:
+//   no padded copy of x, no predicate.  Each consumer thread reads its A
+//   fragment from shared memory (four 4-byte loads per 8-deep slice, free
+//   of bank conflicts under the swizzle), splits it into hi and lo in
+//   registers, and hands both to wgmma as register operands.
+//
+// Work split.  384 threads: warpgroups 0 and 1 consume, each owning 64
+// rows of the 128 x BN tile (BN = 128 or 64); warpgroup 2 produces, one
+// thread of it issuing the TMA loads of a ring of STAGES stages (A 16 KB +
+// B hi and lo 2 x BN x 128 B each; 48 KB at BN = 128) on a full / empty
+// mbarrier pair per stage.  setmaxnreg gives the consumers 232 registers
+// and leaves the producer 40.
+//
+// Each 8-deep slice is three wgmma.m64nBNk8.f32.tf32.tf32 products, small
+// terms first: lo_a*hi_b, hi_a*lo_b, hi_a*hi_b.  As in MainLoop the tensor
+// core truncates as it accumulates, so each 32-deep step is summed from
+// zero into a step accumulator (scale-d = 0 on its first product) and then
+// added to the f32 accumulator on the CUDA cores.  On an H100, chaining
+// every product into one accumulator instead put the error against an f64
+// conv at 9-13x the plain f32 conv's (0.2-0.4x with the step sums) for 3%
+// less time.  The two accumulators are also why BN stops at 128: a 64 x
+// 256 consumer tile would need 2 x 128 of the 232 registers.  Steps run
+// tap-major, channel steps minor, as in MainLoop; no split-K, no atomics:
+// a run repeats bit for bit.  On an H100 the two loops' sums came out bit
+// for bit equal at every shape tried (a wgmma and an mma.sync of one
+// 8-deep slice round alike, whatever the order of the slice's terms), so
+// the conv + moments kernel also sums its moments in the mma.sync loop's
+// order (train_conv.cu), and a shape gives the same bits on either loop.
+namespace hopper {
+
+constexpr int BM = 128;        // pixels per block: two warpgroups of 64 rows
+constexpr int BK = 32;         // channels per step: one 128-byte row of f32
+constexpr int STAGES = 4;      // ring depth
+constexpr int CONSUMERS = 2;   // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int SWIZZLE = 1024;  // the 128-byte swizzle's period: stage alignment
+
+// Shared-memory layout of a BN-wide tile: STAGES x (A, B hi, B lo), each
+// buffer a multiple of SWIZZLE bytes, then the full and empty barriers;
+// EXTRA_OFFSET is where a kernel's own scratch may start.  smem_bytes adds
+// SWIZZLE so that the ring can be aligned inside the dynamic allocation.
+template <int BN>
+struct Layout {
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 4;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static constexpr int BAR_OFFSET = STAGES * STAGE_BYTES;
+  static constexpr int EXTRA_OFFSET = BAR_OFFSET + 2 * STAGES * 8;
+  static constexpr size_t smem_bytes(size_t extra) {
+    return SWIZZLE + EXTRA_OFFSET + extra;
+  }
+  static_assert(A_BYTES % SWIZZLE == 0 && B_BYTES % SWIZZLE == 0,
+                "every buffer starts on the swizzle's period");
+};
+
+// ------------------------------------------------------------ PTX helpers
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of barrier `bar` has completed.
+// A wait past WAIT_LIMIT cycles of the SM clock (some 17 s) traps, so that
+// a fault in the ring ends the kernel with an error instead of hanging the
+// card.
+constexpr long long WAIT_LIMIT = 1ll << 35;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = -1;
+  for (uint32_t spins = 1;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins % 1024 == 0) {
+      const long long now = clock64();
+      if (start < 0) {
+        start = now;
+      } else if (now - start > WAIT_LIMIT) {
+        __trap();
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A K-major operand of 8-row groups 1024 bytes apart, rows of 128 bytes
+// swizzled (TMA's CU_TENSOR_MAP_SWIZZLE_128B): start address, leading
+// offset 16 B (unused by this layout), stride offset 1024 B, layout 128B.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(SWIZZLE >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// A barrier of the consumer warpgroups alone (the producer's may have left).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+// Keeps the compiler from moving an accumulator register across the
+// asynchronous wgmma that reads or writes it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// setmaxnreg: the producer warpgroup gives registers up, the consumers take
+// them (both counts are fixed at compile time).
+template <int N>
+__device__ __forceinline__ void set_max_regs();
+
+template <>
+__device__ __forceinline__ void set_max_regs<PRODUCER_REGS>() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+}
+template <>
+__device__ __forceinline__ void set_max_regs<CONSUMER_REGS>() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+}
+
+// d (64 x N) = a (64 x 8, registers) * b (8 x N, shared memory through
+// `desc`) + (accumulate ? d : 0), TF32 in, f32 out.  d[4j + q] is row
+// 16 * (warp % 4) + lane / 4 + 8 * (q / 2), column 8j + 2 * (lane % 4) +
+// q % 2; a[q] is row 16 * (warp % 4) + lane / 4 + 8 * (q % 2), depth
+// lane % 4 + 4 * (q / 2).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(accumulate));
+  }
+};
+
+
+// --------------------------------------------------------------- the loop
+template <int BN>
+struct Loop {
+  using L = Layout<BN>;
+  static constexpr int ACC = BN / 2;  // accumulator floats per thread
+
+  // The shared ring, aligned to the swizzle's period.
+  static __device__ __forceinline__ uint32_t ring_base(unsigned char* smem) {
+    const uint32_t raw = smem_addr(smem);
+    return (raw + SWIZZLE - 1) & ~static_cast<uint32_t>(SWIZZLE - 1);
+  }
+  static __device__ __forceinline__ uint32_t full_bar(uint32_t base, int s) {
+    return base + L::BAR_OFFSET + 8 * s;
+  }
+  static __device__ __forceinline__ uint32_t empty_bar(uint32_t base, int s) {
+    return base + L::BAR_OFFSET + 8 * (STAGES + s);
+  }
+  // generic pointers to the ring and to the kernel's scratch after the
+  // barriers
+  static __device__ __forceinline__ unsigned char* ring(unsigned char* smem) {
+    return smem + (ring_base(smem) - smem_addr(smem));
+  }
+  static __device__ __forceinline__ unsigned char* extra(unsigned char* smem) {
+    return ring(smem) + L::EXTRA_OFFSET;
+  }
+
+  // One thread initialises the barriers; all THREADS threads must call.
+  static __device__ __forceinline__ void init(unsigned char* smem) {
+    const uint32_t base = ring_base(smem);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full_bar(base, s), 1);
+        mbar_init(empty_bar(base, s), CONSUMERS * 4);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // The producer thread: the loads of every step of the tile at pixel
+  // (img, h0, w0), channel n0, in order, each into the next free stage.
+  static __device__ __forceinline__ void produce(
+      unsigned char* smem, const void* xmap, const void* hi_map,
+      const void* lo_map, int c, int dil, int img, int h0, int w0, int n0) {
+    const uint32_t base = ring_base(smem);
+    const int c_steps = c / BK;
+    const int steps = 9 * c_steps;
+    for (int s = 0; s < steps; ++s) {
+      const int stage = s % STAGES;
+      const int round = s / STAGES;
+      if (round > 0) mbar_wait(empty_bar(base, stage), (round - 1) & 1);
+      const uint32_t full = full_bar(base, stage);
+      mbar_expect_tx(full, L::STAGE_BYTES);
+      const int tap = s / c_steps;
+      const int c0 = (s - tap * c_steps) * BK;
+      const int dy = (tap / 3 - 1) * dil;
+      const int dx = (tap % 3 - 1) * dil;
+      const uint32_t a = base + stage * L::STAGE_BYTES;
+      tma_load_4d(a, xmap, full, c0, w0 + dx, h0 + dy, img);
+      tma_load_2d(a + L::A_BYTES, hi_map, full, tap * c + c0, n0);
+      tma_load_2d(a + L::A_BYTES + L::B_BYTES, lo_map, full, tap * c + c0,
+                  n0);
+    }
+  }
+
+  // The whole block's work for the tile at (blockIdx.x * BM pixels,
+  // blockIdx.y * BN channels): the producer warpgroup loads, the consumer
+  // warpgroups accumulate, then each consumer thread calls
+  // epi(acc, row, col) with the pixel of its acc[0] (row g of its warp's 16;
+  // acc[4j + 2 + q] is 8 rows further) and its channel (column 2t; acc[4j +
+  // q] is column col + 8j + q).  All THREADS threads must call; one big
+  // branch per role, as setmaxnreg needs.
+  template <class Epilogue>
+  static __device__ __forceinline__ void run(
+      unsigned char* smem, const CUtensorMap* xmap, const CUtensorMap* hi_map,
+      const CUtensorMap* lo_map, int h, int wd, int c, int dil,
+      Epilogue&& epi) {
+    init(smem);
+    const int m0 = blockIdx.x * BM;
+    const int n0 = blockIdx.y * BN;
+    const int wg = threadIdx.x / 128;
+    if (wg == CONSUMERS) {
+      set_max_regs<PRODUCER_REGS>();
+      if (threadIdx.x == CONSUMERS * 128) {
+        const int hw = h * wd;
+        const int img = m0 / hw;
+        const int rem = m0 - img * hw;
+        produce(smem, xmap, hi_map, lo_map, c, dil, img, rem / wd, rem % wd,
+                n0);
+      }
+    } else {
+      set_max_regs<CONSUMER_REGS>();
+      float acc[ACC];
+      consume(smem, c, wg, acc);
+      const int warp = (threadIdx.x >> 5) & 3;
+      const int lane = threadIdx.x & 31;
+      epi(acc, m0 + wg * 64 + warp * 16 + (lane >> 2), n0 + 2 * (lane & 3));
+    }
+  }
+
+  // A consumer warpgroup (wg 0 or 1): accumulates its 64 rows of the tile
+  // into acc (zeroed here) in the layout Wgmma documents.
+  static __device__ __forceinline__ void consume(unsigned char* smem, int c,
+                                                 int wg, float (&acc)[ACC]) {
+    const uint32_t base = ring_base(smem);
+    const float* stages = reinterpret_cast<const float*>(ring(smem));
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    // this thread's two A rows; both are g mod 8, so one swizzle for both
+    const int row0 = wg * 64 + warp * 16 + g;
+    const int steps = 9 * (c / BK);
+    float part[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = part[i] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int stage = s % STAGES;
+      mbar_wait(full_bar(base, stage), (s / STAGES) & 1);
+      const float* as = stages + stage * (L::STAGE_BYTES / 4);
+      // A: slice j's columns t and t+4 are 16-byte chunks 2j and 2j+1 of
+      // the row, stored at chunk ^ (row % 8)
+      uint32_t a_hi[4][4], a_lo[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = row0 + (q & 1) * 8;
+          const int chunk = (2 * j + (q >> 1)) ^ g;
+          split_tf32(as[row * BK + chunk * 4 + t], a_hi[j][q], a_lo[j][q]);
+        }
+      }
+      const uint32_t b = base + stage * L::STAGE_BYTES + L::A_BYTES;
+      const uint64_t d_hi = smem_desc(b);
+      const uint64_t d_lo = smem_desc(b + L::B_BYTES);
+      fence_operands(part);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // slice j starts 32 bytes (2 descriptor units) into each B row
+        Wgmma<BN>::mma(part, a_lo[j], d_hi + 2 * j, j > 0);
+        Wgmma<BN>::mma(part, a_hi[j], d_lo + 2 * j, 1);
+        Wgmma<BN>::mma(part, a_hi[j], d_hi + 2 * j, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(empty_bar(base, stage));
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[i] += part[i];
+    }
+  }
+};
+
+// ------------------------------------------------------- the host side
+// cuTensorMapEncodeTiled, fetched from the driver at run time so that the
+// library links against the runtime alone (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tiled f32 tensor map with 128-byte swizzle: `rank` dims innermost
+// first, byte strides of dims 1.. (dims[0] is contiguous), the box.  Reads
+// outside the tensor fill zeros.
+inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rank,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr),
+      dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The three maps of one call: x [n, h, wd, c] in boxes of BK channels x
+// box_w x box_h pixels, and w_hi / w_lo [k, 9c] in boxes of BK x bn.
+struct Maps {
+  CUtensorMap x, w_hi, w_lo;
+};
+
+inline cudaError_t make_maps(Maps* m, const void* x, const void* w_hi,
+                             const void* w_lo, int n, int h, int wd, int c,
+                             int k, int bn, int box_h, int box_w) {
+  const cuuint64_t xd[4] = {static_cast<cuuint64_t>(c),
+                            static_cast<cuuint64_t>(wd),
+                            static_cast<cuuint64_t>(h),
+                            static_cast<cuuint64_t>(n)};
+  const cuuint64_t row = 4ull * c;
+  const cuuint64_t xs[3] = {row, row * wd, row * wd * h};
+  const cuuint32_t xb[4] = {BK, static_cast<cuuint32_t>(box_w),
+                            static_cast<cuuint32_t>(box_h), 1};
+  cudaError_t err = encode(&m->x, x, 4, xd, xs, xb);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t wd2[2] = {9ull * c, static_cast<cuuint64_t>(k)};
+  const cuuint64_t ws[1] = {36ull * c};
+  const cuuint32_t wb[2] = {BK, static_cast<cuuint32_t>(bn)};
+  err = encode(&m->w_hi, w_hi, 2, wd2, ws, wb);
+  if (err != cudaSuccess) return err;
+  return encode(&m->w_lo, w_lo, 2, wd2, ws, wb);
+}
+
+}  // namespace hopper
+
+// w [rows = 9C, k] (HWIO seen as a matrix) -> w_hi, w_lo [k, rows], the
+// K-major TF32 split of each weight (split_tf32): the Hopper loop's B.
+// 32 x 32 tiles through shared memory, so both sides are coalesced.
+constexpr int SPLIT_TILE = 32;
+constexpr int SPLIT_ROWS = 8;  // thread rows of a 32 x 8 block
+
+static __global__ void __launch_bounds__(SPLIT_TILE * SPLIT_ROWS)
+split_weights_kernel(const float* __restrict__ w, float* __restrict__ w_hi,
+                     float* __restrict__ w_lo, int rows, int k) {
+  __shared__ float tile[SPLIT_TILE][SPLIT_TILE + 1];
+  const int r0 = blockIdx.x * SPLIT_TILE;
+  const int k0 = blockIdx.y * SPLIT_TILE;
+  const int tx = threadIdx.x;
+#pragma unroll
+  for (int i = threadIdx.y; i < SPLIT_TILE; i += SPLIT_ROWS) {
+    const int r = r0 + i;
+    const int kk = k0 + tx;
+    tile[i][tx] = r < rows && kk < k ? w[static_cast<size_t>(r) * k + kk] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = threadIdx.y; i < SPLIT_TILE; i += SPLIT_ROWS) {
+    const int kk = k0 + i;
+    const int r = r0 + tx;
+    if (kk < k && r < rows) {
+      uint32_t hi, lo;
+      split_tf32(tile[tx][i], hi, lo);
+      const size_t o = static_cast<size_t>(kk) * rows + r;
+      w_hi[o] = __uint_as_float(hi);
+      w_lo[o] = __uint_as_float(lo);
+    }
+  }
+}
+
+inline cudaError_t split_weights(const void* w, void* w_hi, void* w_lo,
+                                 int c, int k, cudaStream_t stream) {
+  const int rows = 9 * c;
+  const dim3 grid((rows + SPLIT_TILE - 1) / SPLIT_TILE,
+                  (k + SPLIT_TILE - 1) / SPLIT_TILE);
+  split_weights_kernel<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, stream>>>(
+      static_cast<const float*>(w), static_cast<float*>(w_hi),
+      static_cast<float*>(w_lo), rows, k);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ plan
+// Which loop a call takes, and its tile: the one place this is decided
+// (mirrored for the CPU tests by mcmda_tpu_torch/kernels/conv_tile.py).
+enum LoopId { kMmaSync = 0, kWgmma = 1 };
+
+struct Plan {
+  int loop;   // LoopId
+  int bn;     // output channels per block
+  int box_h;  // the Hopper loop's A box: image rows x columns (else 0)
+  int box_w;
+  int grid_x;  // pixel tiles
+  int grid_y;  // channel tiles
+};
+
+inline Plan plan(int n, int h, int wd, int c, int k, bool x_bf16, int sms) {
+  const int m = n * h * wd;
+  Plan p{kMmaSync, 0, 0, 0, m_tiles(m), 0};
+  const bool rows_fit = (hopper::BM % wd == 0 && h % (hopper::BM / wd) == 0) ||
+                        wd % hopper::BM == 0;
+  if (!x_bf16 && c % hopper::BK == 0 && k % 64 == 0 && rows_fit) {
+    p.loop = kWgmma;
+    p.box_w = wd < hopper::BM ? wd : hopper::BM;
+    p.box_h = hopper::BM / p.box_w;
+    // 128 wide unless that fills under 3/4 of the SMs, where 64-wide
+    // tiles run twice the blocks in the same single wave
+    const long blocks128 = static_cast<long>(m / hopper::BM) * (k / 128);
+    p.bn = k % 128 == 0 && 4 * blocks128 >= 3L * sms ? 128 : 64;
+    p.grid_x = m / hopper::BM;
+  } else {
+    p.bn = tile_width(pick_tile(m, k, sms));
+  }
+  p.grid_y = (k + p.bn - 1) / p.bn;
+  return p;
+}
+
+// A Hopper-loop call's host work before its kernel: the three tensor maps
+// (into `maps`), then the weight pre-pass into w_hi / w_lo on `stream`.
+inline cudaError_t prepare_wgmma(hopper::Maps* maps, const void* x,
+                                 const void* w, void* w_hi, void* w_lo, int n,
+                                 int h, int wd, int c, int k, const Plan& p,
+                                 cudaStream_t stream) {
+  if (w_hi == nullptr || w_lo == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err = hopper::make_maps(maps, x, w_hi, w_lo, n, h, wd, c,
+                                            k, p.bn, p.box_h, p.box_w);
+  if (err != cudaSuccess) return err;
+  return split_weights(w, w_hi, w_lo, c, k, stream);
 }
 
 }  // namespace conv_tile

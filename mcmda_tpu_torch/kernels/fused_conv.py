@@ -8,7 +8,8 @@ residual add and activation, with one store of the result.
 - ``conv_bn_act_reference``: the plain PyTorch version, the oracle.
 - ``conv_bn_act``: the wrapper the model calls.  A CPU tensor takes the plain
   version; a CUDA tensor launches the hand-written kernel
-  (``csrc/fused_conv.cu``) or raises.  There is no silent fallback.  Where
+  (``csrc/fused_conv.cu``, on the main loop ``conv_tile.plan`` gives the
+  shape) or raises.  There is no silent fallback.  Where
   autograd records and an input requires grad, the call goes through
   ``ConvBnAct`` (``conv_bn_act_vjp``), the JAX package's custom VJP: the
   same forward, the backward through transposed convs.  That form has no
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch.nn import grad as nn_grad
 
-from mcmda_tpu_torch.kernels import build
+from mcmda_tpu_torch.kernels import build, conv_tile
 from mcmda_tpu_torch.ops import layers
 
 # Kernel launches made by ``conv_bn_act``; callers reset and read it to show
@@ -89,9 +90,14 @@ def _forward(x, w, scale, bias, dilation, activation, residual):
         raise ValueError("conv_bn_act: N*H*W must fit a 32-bit int")
 
     out = torch.empty((n, h, wd, k), dtype=torch.float32, device=x.device)
+    w_hi, w_lo = conv_tile.weight_scratch(
+        conv_tile.plan_on_device(n, h, wd, c, k, x.dtype, x.device), c, k,
+        x.device)
     build.launch(
         "mcmda_conv_bn_act", x.device, x.data_ptr(), _X_DTYPES[x.dtype],
-        w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        w.data_ptr(), None if w_hi is None else w_hi.data_ptr(),
+        None if w_lo is None else w_lo.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(),
         residual.data_ptr() if residual is not None else None,
         _X_DTYPES[residual.dtype] if residual is not None else 0,
         out.data_ptr(), n, h, wd, c, k, dilation, _ACTIVATIONS[activation])

@@ -10,7 +10,8 @@ normalize + residual + activation step after it is plain PyTorch
 - ``conv_stats_reference``: the plain PyTorch version, the oracle.
 - ``conv_stats``: differentiable (``ConvStats``).  Its forward takes the
   plain version for a CPU tensor and launches the hand-written kernel
-  (``csrc/train_conv.cu``) for a CUDA tensor, or raises; no silent fallback.
+  (``csrc/train_conv.cu``, on the main loop ``conv_tile.plan`` gives the
+  shape) for a CUDA tensor, or raises; no silent fallback.
   Its backward is the analytic VJP of the JAX package's custom VJP: the
   moments' cotangents collapse onto z, then dx and dw are the transposed
   convs, which PyTorch runs (the JAX package leaves them to XLA too).
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 from torch.nn import grad as nn_grad
 
-from mcmda_tpu_torch.kernels import build
+from mcmda_tpu_torch.kernels import build, conv_tile
 from mcmda_tpu_torch.ops import layers
 
 # Kernel launches made by ``conv_stats``; callers reset and read it to show
@@ -66,7 +67,12 @@ def conv_stats_forward(x, w, dilation: int = 1):
                           device=x.device)
     s = torch.empty((k,), dtype=torch.float32, device=x.device)
     ss = torch.empty((k,), dtype=torch.float32, device=x.device)
+    w_hi, w_lo = conv_tile.weight_scratch(
+        conv_tile.plan_on_device(n, h, wd, c, k, x.dtype, x.device), c, k,
+        x.device)
     build.launch("mcmda_conv_stats", x.device, x.data_ptr(), w.data_ptr(),
+                 None if w_hi is None else w_hi.data_ptr(),
+                 None if w_lo is None else w_lo.data_ptr(),
                  z.data_ptr(), partial.data_ptr(), s.data_ptr(),
                  ss.data_ptr(), n, h, wd, c, k, dilation)
     global LAUNCHES

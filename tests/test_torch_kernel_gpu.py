@@ -20,6 +20,7 @@ the same kernels in the same order.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ import torch
 
 from mcmda_tpu_torch.config import DataConfig, SegmenterConfig, StageSpec
 from mcmda_tpu_torch.data import pipeline
+from mcmda_tpu_torch.kernels import conv_tile
 from mcmda_tpu_torch.kernels import fused_conv as fk
 from mcmda_tpu_torch.kernels import thin_conv as sk
 from mcmda_tpu_torch.kernels import train_conv as tk
@@ -244,6 +246,128 @@ def test_conv_stats_gradients_match_plain_autograd(cuda_device):
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+# The 1/8-resolution tail's shapes (C -> K, dilation), each at batch 8
+# and 16: what the Hopper loop (conv_tile.cuh, TMA + wgmma) takes
+TAIL = [(128, 256, 2), (256, 256, 2), (256, 512, 2), (512, 512, 2),
+        (512, 512, 4), (128, 128, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("c,k,dilation", TAIL)
+def test_tail_shapes_take_the_hopper_loop_and_match_plain(cuda_device, n, c,
+                                                          k, dilation):
+    """Both conv kernels at every tail shape: the library plans the Hopper
+    loop, as conv_tile.plan says; each kernel agrees with its plain version
+    at the tolerances above and repeats bit for bit."""
+    x, w, s, b, r = _inputs(31, n, 32, 32, c, k, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    p = conv_tile.plan_on_device(n, 32, 32, c, k, x.dtype, cuda_device)
+    assert p == conv_tile.plan(n, 32, 32, c, k, x.dtype, sms)
+    assert p.loop == "wgmma"
+    kw = dict(dilation=dilation, activation="relu", residual=r)
+    got = fk.conv_bn_act(x, w, s, b, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, fk.conv_bn_act_reference(x, w, s, b, **kw), rtol=1e-4,
+        atol=1e-4)
+    assert torch.equal(got, fk.conv_bn_act(x, w, s, b, **kw))
+    z, sm, ss = tk.conv_stats_forward(x, w, dilation)
+    torch.cuda.synchronize()
+    rz, rs, rss = tk.conv_stats_reference(x, w, dilation)
+    torch.testing.assert_close(z, rz, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sm, rs, rtol=0,
+                               atol=1e-4 * rz.abs().sum().item() / k)
+    torch.testing.assert_close(ss, rss, rtol=1e-4, atol=0)
+    z2, sm2, ss2 = tk.conv_stats_forward(x, w, dilation)
+    assert torch.equal(z, z2) and torch.equal(sm, sm2) and torch.equal(ss, ss2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,c,k,dilation", [
+    (8, 32, 128, 128, 1), (8, 32, 128, 256, 2), (8, 32, 512, 512, 4),
+    (16, 32, 128, 128, 1), (8, 64, 64, 64, 1)])
+def test_hopper_and_mma_sync_loops_give_the_same_bits(cuda_device, n, hw, c,
+                                                       k, dilation):
+    """One conv on both loops: x and w with 8 zero channels appended (C no
+    multiple of 32) take the mma.sync loop, the unpadded ones the Hopper
+    loop; the zero channels add exact zeros, so z, the moments (summed in
+    the mma.sync loop's order on both) and the fused output agree bit for
+    bit."""
+    x, w, s, b, r = _inputs(34, n, hw, hw, c, k, cuda_device)
+    xp = torch.cat([x, torch.zeros((n, hw, hw, 8), device=cuda_device)], -1)
+    wp = torch.cat([w, torch.zeros((3, 3, 8, k), device=cuda_device)], 2)
+    plans = [conv_tile.plan_on_device(n, hw, hw, cc, k, x.dtype, cuda_device)
+             for cc in (c, c + 8)]
+    assert [p.loop for p in plans] == ["wgmma", "mma_sync"]
+    hopper = tk.conv_stats_forward(x, w, dilation)
+    mma = tk.conv_stats_forward(xp, wp, dilation)
+    assert all(torch.equal(a, m) for a, m in zip(hopper, mma))
+    kw = dict(dilation=dilation, residual=r)
+    assert torch.equal(fk.conv_bn_act(x, w, s, b, **kw),
+                       fk.conv_bn_act(xp, wp, s, b, **kw))
+
+
+@pytest.mark.cuda
+def test_hopper_loop_repeats_bitwise_across_calls_and_streams(cuda_device):
+    """Two calls on the same inputs give the same bits for both kernels,
+    also on another stream with other work between them: one fixed
+    summation order, no atomics."""
+    x, w, s, b, r = _inputs(32, 8, 32, 32, 512, 512, cuda_device)
+    first = (fk.conv_bn_act(x, w, s, b, dilation=4, residual=r),
+             *tk.conv_stats_forward(x, w, 4))
+    other = torch.cuda.Stream()
+    other.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(other):
+        tk.conv_stats_forward(x * 2.0, w, 2)
+        second = (fk.conv_bn_act(x, w, s, b, dilation=4, residual=r),
+                  *tk.conv_stats_forward(x, w, 4))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(32, 64), (512, 512), (40, 24)])
+def test_weight_split_kernel_equals_plain(cuda_device, c, k):
+    """The Hopper loop's pre-pass against its plain version, bit for bit
+    (one rounding of each weight, no arithmetic order)."""
+    w = _inputs(33, 1, 4, 4, c, k, cuda_device)[1]
+    w[0, 0, 0, :] = torch.tensor(  # exact ties of the TF32 rounding
+        np.array([0x3F801000, 0xBF801000] * (k // 2),
+                 np.uint32).view(np.float32)).to(cuda_device)
+    before = conv_tile.LAUNCHES
+    hi, lo = conv_tile.split_weights(w)
+    torch.cuda.synchronize()
+    assert conv_tile.LAUNCHES == before + 1
+    want_hi, want_lo = conv_tile.split_weights_reference(w)
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+
+
+@pytest.mark.cuda
+def test_library_holds_wgmma_and_tma(cuda_device):
+    """The built library's SASS holds the Hopper loop's instructions:
+    HGMMA (wgmma) and UTMALDG (TMA tensor loads)."""
+    import shutil
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mcmda_tpu_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or (
+        CUDA_HOME and shutil.which("cuobjdump",
+                                   path=f"{CUDA_HOME}/bin"))
+    if not tool:
+        pytest.skip("cuobjdump is missing: the SASS cannot be read here")
+    sass = subprocess.run([tool, "-sass", str(build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    kernels = re.split(r"\n\s*Function : ", sass)
+    hopper = [k for k in kernels if "CUtensorMap" in k.split("\n", 1)[0]]
+    assert len(hopper) == 4  # conv_bn_act and conv_stats, 64 and 128 wide
+    for text in hopper:
+        assert "HGMMA" in text and "UTMALDG" in text, text.split("\n", 1)[0]
 
 
 @pytest.mark.cuda
