@@ -42,7 +42,7 @@ from mcmda_tpu_torch.models import segmenter
 from mcmda_tpu_torch.train import adapt as adapt_mod, drivers, loop, \
     source as source_mod
 from mcmda_tpu_torch.utils import checkpoint as ckpt, device as device_mod, \
-    logging as mlog, tree
+    logging as mlog, profiling, tree
 
 
 def load_config(path: str | None = None) -> ExperimentConfig:
@@ -316,18 +316,26 @@ def predict(cfg: ExperimentConfig, state, volumes: Sequence[np.ndarray], *,
     ``postprocess`` / ``tta`` as in :func:`evaluate` (defaulting to
     ``cfg.run.eval_postprocess`` / ``cfg.run.eval_tta``).  Write results with
     ``mcmda_tpu_torch.data.volumes.save_volume`` or via the ``predict``
-    CLI."""
+    CLI.
+
+    Each volume is a host span ``predict.volume`` (``profiling.span``)
+    holding ``predict_volume``'s spans, ``predict.postprocess`` where a
+    filter is set and ``predict.cast``, the cast to uint8."""
     device = device_mod.resolve(state.step.device)
     fwd, pp = _serving(cfg, _forward_for(cfg, state), postprocess, tta)
     preds = []
     for vol in volumes:
-        pred = inference.predict_volume(fwd, vol,
-                                        context=cfg.data.context_slices,
-                                        batch_size=cfg.data.batch_size,
-                                        device=device)
-        if pp is not None:
-            pred = pp(pred, splits.STRUCTURES)
-        preds.append(pred.astype(np.uint8))
+        with profiling.span("predict.volume"):
+            pred = inference.predict_volume(fwd, vol,
+                                            context=cfg.data.context_slices,
+                                            batch_size=cfg.data.batch_size,
+                                            device=device)
+            if pp is not None:
+                with profiling.span("predict.postprocess"):
+                    pred = pp(pred, splits.STRUCTURES)
+            with profiling.span("predict.cast"):
+                pred = pred.astype(np.uint8)
+        preds.append(pred)
     return preds
 
 

@@ -17,7 +17,7 @@ import torch
 from mcmda_tpu_torch.data import volumes as vol_io
 from mcmda_tpu_torch.parallel import dp
 from mcmda_tpu_torch.train import drivers
-from mcmda_tpu_torch.utils import cuda_graph
+from mcmda_tpu_torch.utils import cuda_graph, profiling
 
 _scan_cache: dict = {}
 _tta_cache: dict = {}
@@ -151,7 +151,11 @@ def predict_volume(forward, volume: np.ndarray, *, context: int = 3,
     ``mesh``: a process group whose every rank calls this with the same
     volume; each batch is split over its ranks and the probabilities are
     gathered, so every rank returns the whole label volume.  ``batch_size``
-    must divide by the number of ranks."""
+    must divide by the number of ranks.
+
+    On a GPU the host waits for the volume's device work in a span
+    ``predict.wait``; the copy of the labels to the host is the span
+    ``predict.readback`` (``profiling.span``)."""
     if mesh is not None:
         forward = _sharded(forward, mesh)
     vol = torch.from_numpy(np.ascontiguousarray(volume, np.float32))
@@ -164,7 +168,11 @@ def predict_volume(forward, volume: np.ndarray, *, context: int = 3,
     else:
         preds = _argmax_volume(forward, vol.to(device), fwd_args, context,
                                batch_size)
-    return preds.cpu().numpy()
+    if preds.is_cuda:
+        with profiling.span("predict.wait"):
+            torch.cuda.current_stream(preds.device).synchronize()
+    with profiling.span("predict.readback"):
+        return preds.cpu().numpy()
 
 
 @torch.inference_mode()

@@ -7,7 +7,11 @@ package's ``lax.scan`` over a step: on a GPU one train step is captured as
 a CUDA graph and replayed ``inner_steps`` times (``utils/cuda_graph.py``),
 so the host issues a few calls per step instead of the step's thousands of
 kernel launches; elsewhere the steps run one after another.  ``run``
-drives such a step on the JAX package's schedule."""
+drives such a step on the JAX package's schedule, in host spans
+(``profiling.span``): ``train.call`` around each call of the step,
+``train.log`` around a log tick's readback and write, ``train.probe``
+around a probe tick and ``train.checkpoint`` around each save (with its
+prune and callback)."""
 
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import os
 import signal
 from typing import Callable, Iterator
 
-from mcmda_tpu_torch.utils import checkpoint, logging as mlog, prng
+from mcmda_tpu_torch.utils import checkpoint, logging as mlog, prng, profiling
 
 
 class _PreemptionGuard:
@@ -105,41 +109,48 @@ def run(step_fn: Callable, state, batches: Iterator, num_steps: int, *,
             return
         s, m = pending_log
         pending_log = None
-        last_metrics = {k: float(v) for k, v in m.items()}
-        logger.log(s, last_metrics)
+        with profiling.span("train.log"):
+            last_metrics = {k: float(v) for k, v in m.items()}
+            logger.log(s, last_metrics)
 
     with _PreemptionGuard() as guard:
         for outer in range(start_step // k, num_steps // k):
             step = (outer + 1) * k - 1  # the last train step of this call
-            state, metrics = step_fn(state, next(batches),
-                                     prng.step_key(root, outer))
+            with profiling.span("train.call"):
+                state, metrics = step_fn(state, next(batches),
+                                         prng.step_key(root, outer))
             if log_every and (step % log_every < k or step >= num_steps - k):
                 _flush_log()
                 pending_log = (step, metrics)
             if probe is not None and probe_every and \
                     (step + 1) % probe_every < k:
-                probe(step + 1, state, metrics)
+                with profiling.span("train.probe"):
+                    probe(step + 1, state, metrics)
             if ckpt_every and step + 1 < num_steps and \
-                    (step + 1) % ckpt_every < k:
-                if ckpt_dir:
-                    checkpoint.save(ckpt_dir, state, step=step + 1)
-                    checkpoint.prune(ckpt_dir, keep_checkpoints,
-                                     protect=(protect_steps()
-                                              if protect_steps else ()),
-                                     newest=step + 1)
-                if callback is not None:
-                    callback(step + 1, state,
-                             {k: float(v) for k, v in metrics.items()})
+                    (step + 1) % ckpt_every < k and \
+                    (ckpt_dir or callback is not None):
+                with profiling.span("train.checkpoint"):
+                    if ckpt_dir:
+                        checkpoint.save(ckpt_dir, state, step=step + 1)
+                        checkpoint.prune(ckpt_dir, keep_checkpoints,
+                                         protect=(protect_steps()
+                                                  if protect_steps else ()),
+                                         newest=step + 1)
+                    if callback is not None:
+                        callback(step + 1, state,
+                                 {k: float(v) for k, v in metrics.items()})
             if guard.fired:
                 _flush_log()
                 if ckpt_dir:
-                    checkpoint.save(ckpt_dir, state, step=step + 1)
+                    with profiling.span("train.checkpoint"):
+                        checkpoint.save(ckpt_dir, state, step=step + 1)
                     print(f"[loop] preemption signal: checkpointed at step "
                           f"{step + 1} and stopped", flush=True)
                 return state, last_metrics
     _flush_log()
     if ckpt_dir:
-        checkpoint.save(ckpt_dir, state, step=num_steps)
+        with profiling.span("train.checkpoint"):
+            checkpoint.save(ckpt_dir, state, step=num_steps)
     return state, last_metrics
 
 

@@ -36,7 +36,12 @@ probe, the seed sweep's probes), captured once and replayed once per call;
 ``call`` picks it or the eager function.
 
 Both capture under ``torch.cuda.set_sync_debug_mode("error")``, so a
-function that waits on the device raises instead of being captured.  A
+function that waits on the device raises instead of being captured.
+Each call opens host spans (``profiling.span``) around its parts: one
+``graph.capture`` (the warm-up and the capture, at the first call and at
+a recapture), else one ``graph.load`` (the inputs copied into the
+graph's buffers), then one ``graph.replay`` (the replays and the output
+copies); nothing inside a captured function opens one.  A
 failed capture or replay raises; nothing falls back to eager execution.
 A kernel wrapper counts its launches on the host, so the kernels'
 ``LAUNCHES`` count the warm-up and the launches that the capture records,
@@ -49,7 +54,7 @@ import time
 
 import torch
 
-from mcmda_tpu_torch.utils import prng, tree
+from mcmda_tpu_torch.utils import prng, profiling, tree
 
 
 def _ptrs(tensors):
@@ -102,20 +107,24 @@ class GraphedSteps:
     def __call__(self, state, batch, seed):
         first, metrics = 0, {}
         if self.graph is None:
-            state, metrics = self._warm_up(
-                state, batch, prng.inner_key(seed, 0, self.inner))
+            with profiling.span("graph.capture"):
+                state, metrics = self._warm_up(
+                    state, batch, prng.inner_key(seed, 0, self.inner))
             first = 1
         else:
-            if self.fed:
-                self._feed(batch)
-            else:
-                self._check_batch(batch)
-            self._load(state)
-        for i in range(first, self.inner):
-            self.gen.manual_seed(prng.inner_key(seed, i, self.inner))
-            self.graph.replay()
+            with profiling.span("graph.load"):
+                if self.fed:
+                    self._feed(batch)
+                else:
+                    self._check_batch(batch)
+                self._load(state)
         if self.inner > first:
-            metrics = {k: v.clone() for k, v in self._metrics.items()}
+            with profiling.span("graph.replay"):
+                for i in range(first, self.inner):
+                    self.gen.manual_seed(prng.inner_key(seed, i,
+                                                        self.inner))
+                    self.graph.replay()
+                metrics = {k: v.clone() for k, v in self._metrics.items()}
         out = self._state if self.donate else tree.unflatten(
             self._state, [t.clone() for t in self._static])
         return out, metrics
@@ -274,17 +283,21 @@ class GraphedCall:
         leaves = tree.leaves(inputs)
         if self.graph is None:
             self._sig = _sig(leaves)
-            self._capture(inputs, leaves, borrow=True)
+            with profiling.span("graph.capture"):
+                self._capture(inputs, leaves, borrow=True)
         else:
             _check_sig(leaves, self._sig, "call")
             if any(b and s.data_ptr() != t.data_ptr() for s, t, b
                    in zip(self._static, leaves, self._borrowed)):
-                self._capture(inputs, leaves, borrow=False)
+                with profiling.span("graph.capture"):
+                    self._capture(inputs, leaves, borrow=False)
             else:
-                self._load(leaves)
-        self.graph.replay()
-        return tree.unflatten(self._out, [t.clone() for t in
-                                          tree.leaves(self._out)])
+                with profiling.span("graph.load"):
+                    self._load(leaves)
+        with profiling.span("graph.replay"):
+            self.graph.replay()
+            return tree.unflatten(self._out, [t.clone() for t in
+                                              tree.leaves(self._out)])
 
     def _load(self, leaves):
         """Copy each input into the graph's own buffer (host inputs one by

@@ -1,9 +1,9 @@
 """Profiling / tracing (counterpart of ``mcmda_tpu/utils/profiling.py``).
 
+- ``span(name)``: a named host span around a step of the program, seen
+  by ``torch.profiler`` on its own clock and free when no profiler runs.
 - ``trace(logdir)``: a ``torch.profiler`` context that writes a Chrome
   trace (``chrome://tracing``, Perfetto) into ``logdir``.
-- ``StepTimer``: host-clock per-step timing with device synchronisation,
-  reporting throughput (slices/sec/chip) over a sliding window.
 - ``measure_step``: a few steps under the profiler -> host clock per step,
   the device's busy time and idle share, kernels per step and the kernels
   that take the most device time.
@@ -23,7 +23,24 @@ import time
 
 import torch
 
-from mcmda_tpu_torch.utils import tree
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError as e:  # torch before 2.2
+    raise ImportError(
+        "mcmda_tpu_torch needs torch._C._profiler._RecordFunctionFast "
+        f"(torch 2.2 or later) for its spans; this torch is "
+        f"{torch.__version__}") from e
+
+
+def span(name: str):
+    """A context that records the block as a host event named ``name``
+    while ``torch.profiler`` runs, and costs under a microsecond when none
+    does.  The event is an operator event (``cpu_op`` in a Chrome trace),
+    not a ``record_function`` annotation, so it casts no shadow on the
+    device's timeline: a device trace's busy time stays that of its
+    kernels and copies.  Names are ``<layer>.<step>``, never a kernel's
+    symbol nor a ``cu*Launch*`` call's."""
+    return _RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
@@ -108,30 +125,3 @@ def measure_step(step, state, data, n: int = 3,
             "kernels_per_step": len(events) / n_steps,
             "host_launches_per_step": launches / n_steps,
             "top_kernels": [(k, t / 1000.0 / n_steps) for k, t in top]}
-
-
-class StepTimer:
-    def __init__(self, batch_size: int, num_devices: int = 1,
-                 window: int = 50):
-        self.batch = batch_size
-        self.ndev = max(1, num_devices)
-        self.window = window
-        self._t = []
-
-    def tick(self, sync_value=None) -> None:
-        """Record a step boundary, after the device of ``sync_value`` (a
-        CUDA tensor, or a tree of them) has finished its queued work."""
-        for device in {t.device for t in tree.leaves(sync_value)
-                       if t.is_cuda}:
-            torch.cuda.synchronize(device)
-        self._t.append(time.perf_counter())
-        if len(self._t) > self.window + 1:
-            self._t.pop(0)
-
-    @property
-    def slices_per_sec_per_chip(self) -> float:
-        if len(self._t) < 2:
-            return 0.0
-        dt = (self._t[-1] - self._t[0]) / (len(self._t) - 1)
-        return self.batch / dt / self.ndev
-

@@ -15,7 +15,6 @@ step or step 0; every entry point reaches the device helper.
 
 import os
 import sys
-import time
 import types
 
 import numpy as np
@@ -241,17 +240,6 @@ def test_fwd_args_equals_the_closure_form():
 
 
 # ---------------------------------------------------------------- profiling
-def test_step_timer():
-    t = profiling.StepTimer(batch_size=8, num_devices=2, window=3)
-    assert t.slices_per_sec_per_chip == 0.0
-    for _ in range(5):
-        t.tick({"loss": torch.zeros(()), "aux": (torch.ones(2),)})
-        time.sleep(0.01)
-    assert len(t._t) == 4  # window + 1 boundaries
-    rate = t.slices_per_sec_per_chip
-    assert 0 < rate < 8 / 0.01 / 2
-
-
 @pytest.mark.parametrize("spans,want", [
     ([(0.0, 2.0), (1.0, 3.0)], 3.0),                  # overlapping
     ([(0.0, 10.0), (2.0, 3.0), (4.0, 5.0)], 10.0),    # nested
